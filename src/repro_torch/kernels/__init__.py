@@ -1,0 +1,119 @@
+"""Hand-written Hopper kernels of the port, their build, and launch counts.
+
+Each kernel package mirrors the reference's Pallas package:
+  <name>/csrc/*.cu  — CUDA C++ for sm_90a with a plain C interface
+  <name>/kernel.py  — the ctypes binding: operand checks, launch, counter
+  <name>/ref.py     — the plain-torch version of the same function
+  <name>/ops.py     — the public wrappers
+
+Build: ``nvcc`` compiles each source into its own shared library under
+``build/kernels/`` at the repo root (listed in .gitignore) the first time a
+wrapper meets a CUDA tensor, and ``ctypes`` loads it.  Nothing is compiled
+at import: the CPU tests import every module on a machine without nvcc.
+:func:`build_all` starts one nvcc per source, all at once.
+
+Launch counts: every wrapper calls :func:`count_launch` right after its
+kernel launched, and nowhere else — so a run can show that its main path
+went through the kernels (chip_smoke.py resets and reads them).
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import subprocess
+import threading
+
+# f32 lane width of the packed (R, LANE) state layout, shared by the
+# gossip-blend kernels and the pack-once layer (core/packing.py)
+LANE = 512
+
+_PKG = pathlib.Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no fused multiply-add contraction: each kernel rounds every product
+    # and sum on its own, as its plain-torch version does
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC")
+
+_launches: collections.Counter = collections.Counter()
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    _launches[name] += 1
+
+
+def launch_counts() -> dict:
+    """Kernel name -> launches since the last :func:`reset_launch_counts`."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    _launches.clear()
+
+
+def kernel_sources() -> list[pathlib.Path]:
+    """Every CUDA source of the port, one shared library each."""
+    return sorted(_PKG.glob("*/csrc/*.cu"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset and no "
+                           "nvcc on PATH): cannot build the port's kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path(source: pathlib.Path) -> pathlib.Path:
+    """Build output of ``source``, keyed by its content and the flags."""
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+
+
+def build_all(sources=None) -> dict:
+    """Compile every source whose library is missing, one nvcc process per
+    source, all started together.  Returns {source: library path}; raises
+    with nvcc's output if any build fails."""
+    sources = [pathlib.Path(s) for s in (sources or kernel_sources())]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, procs = {}, []
+    for src in sources:
+        lib = library_path(src)
+        out[src] = lib
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((src, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for src, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)   # atomic: concurrent builders never
+            #                        load a half-written library
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+def load_library(source: pathlib.Path) -> ctypes.CDLL:
+    """The loaded shared library of ``source``, built on first use."""
+    source = pathlib.Path(source)
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            path = build_all([source])[source]
+            lib = _libs[source] = ctypes.CDLL(str(path))
+        return lib

@@ -1,0 +1,175 @@
+"""CLI trainer: ASGD gossip training on the packed-resident engines.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --workers 4 --pipelined --wire-format int8 --steps 6
+
+runs full smollm-135m on the GPU: W worker replicas in one packed
+(W, R, LANE) ensemble, the gossip blend through the CUDA kernels.  Add
+``--device cpu`` (and ``--reduced`` for the smoke-scale arch) to run on the
+CPU through the kernels' plain versions.
+
+Flags follow the reference trainer.  Not ported yet, and raising with the
+ROADMAP.md item that carries them: the pytree engine (neither
+--packed-resident nor --pipelined), --algo sync, --elastic, --save and
+--restore.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import resolve_device, set_full_fp32_precision
+from ..configs.registry import get_arch
+from ..core.asgd import ASGDConfig
+from ..core.gossip import (GossipConfig, draw_gossip_indices, final_average,
+                           init_packed_gossip_state,
+                           init_pipelined_gossip_state, leaf_groups)
+from ..core.packing import pack_spec_w, pack_w, unpack_w
+from ..core.tree import tree_map
+from ..data.synthetic import lm_batch_iterator
+from ..models import model as M
+from .steps import init_inner_state, make_train_step
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet — ROADMAP.md "
+        f"queue A, {item}")
+
+
+def main(argv=None):
+    """Parse flags, train, and return {"losses", "step_seconds", "n_good",
+    "params"} (params: the final worker-averaged tree)."""
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-scale variant of the arch")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--algo", default="asgd",
+                    choices=["asgd", "silent", "sync"])
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--workers", type=int, default=4,
+                    help="ASGD worker replicas (W axis)")
+    ap.add_argument("--batch", type=int, default=2, help="per-worker batch")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--eps", type=float, default=0.05)
+    ap.add_argument("--inner", default="sgd",
+                    choices=["sgd", "momentum", "adam"])
+    ap.add_argument("--partial-blocks", type=int, default=4)
+    ap.add_argument("--delay", type=int, default=1)
+    ap.add_argument("--wire-format", default="none",
+                    choices=["none", "int8", "bf16", "f16"])
+    ap.add_argument("--elastic", action="store_true")
+    ap.add_argument("--elastic-blend", action="store_true",
+                    help="beyond-paper elastic (EASGD-style) blending")
+    ap.add_argument("--lr-schedule", default="none",
+                    choices=["none", "const", "cosine", "linear"])
+    ap.add_argument("--warmup", type=int, default=100)
+    ap.add_argument("--packed-resident", action="store_true")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="pipeline the gossip round (implies "
+                         "--packed-resident)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--restore", default=None)
+    ap.add_argument("--log-every", type=int, default=10)
+    args = ap.parse_args(argv)
+
+    if args.pipelined:
+        args.packed_resident = True
+    if not args.packed_resident:
+        _not_ported("the pytree gossip engine (no --packed-resident / "
+                    "--pipelined), which --algo silent uses there too",
+                    "item 6")
+    if args.algo == "sync":
+        _not_ported("--algo sync", "item 6")
+    if args.elastic:
+        _not_ported("--elastic (per-peer liveness)", "item 4")
+    if args.save or args.restore:
+        _not_ported("--save / --restore (checkpoints)", "item 5")
+    if args.lr_schedule != "none" and not args.pipelined:
+        ap.error("--lr-schedule requires --pipelined")
+
+    device = resolve_device(args.device)
+    set_full_fp32_precision()
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    W = args.workers
+
+    params = M.init_model(cfg, args.seed, device=device)
+    wparams = tree_map(lambda x: x.expand((W,) + tuple(x.shape)), params)
+    wire_format, payload_dtype = {
+        "none": (None, None),
+        "int8": ("int8", None),
+        "bf16": ("dtype", torch.bfloat16),
+        "f16": ("dtype", torch.float16),
+    }[args.wire_format]
+    gcfg = GossipConfig(
+        shifts=tuple(s for s in (1, 2, 4, 8) if s < max(W, 2)),
+        partial_blocks=args.partial_blocks, delay=args.delay,
+        wire_format=wire_format, payload_dtype=payload_dtype)
+    acfg = ASGDConfig(eps=args.eps, elastic=args.elastic_blend)
+    schedule = None
+    if args.lr_schedule != "none":
+        from ..optim import lr_schedule as _mk_sched
+        schedule = _mk_sched(args.lr_schedule, args.eps,
+                             warmup=args.warmup, total=args.steps)
+
+    # pack ONCE at init; the ensemble stays packed until the final average
+    spec = pack_spec_w(wparams, block_rows=gcfg.fused_block_rows,
+                       groups=leaf_groups(wparams, gcfg.partial_blocks),
+                       n_groups=gcfg.partial_blocks)
+    packed = pack_w(wparams, spec)
+    del params, wparams
+    wire_br = spec.block_rows if wire_format == "int8" else None
+    init_state = (init_pipelined_gossip_state if args.pipelined
+                  else init_packed_gossip_state)
+    state = {"params": packed, "gossip": init_state(packed, gcfg,
+                                                    block_rows=wire_br),
+             "opt": init_inner_state(packed, args.inner)}
+
+    step_fn = make_train_step(
+        cfg, pack_spec=spec, algo=args.algo, inner=args.inner, gcfg=gcfg,
+        acfg=acfg, pipelined=args.pipelined, lr_schedule=schedule)
+    its = [lm_batch_iterator(
+        args.seed * 1000 + w, args.batch, args.seq, cfg.vocab,
+        frontend=cfg.frontend, d_model=cfg.d_model,
+        encoder_seq=cfg.encoder_seq, prefix_len=cfg.prefix_len)
+        for w in range(W)]
+    draws = torch.Generator().manual_seed(args.seed)
+
+    losses, step_seconds, n_good = [], [], []
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        t_step = time.perf_counter()
+        tokens = torch.stack([torch.from_numpy(next(it)["tokens"])
+                              for it in its]).to(device)
+        shift_idx, block_idx = draw_gossip_indices(draws, gcfg)
+        state["params"], state["gossip"], state["opt"], metrics = step_fn(
+            state["params"], state["gossip"], state["opt"],
+            {"tokens": tokens}, shift_idx, block_idx)
+        losses.append(float(metrics["loss"]))      # waits for the step
+        step_seconds.append(time.perf_counter() - t_step)
+        if "n_good" in metrics:
+            n_good.append(float(metrics["n_good"]))
+        if step % args.log_every == 0 or step == args.steps - 1:
+            extra = f" good_msgs={n_good[-1]:.0f}" if n_good else ""
+            print(f"step {step:5d} loss {losses[-1]:.4f}"
+                  f" ({time.perf_counter() - t0:.1f}s){extra}", flush=True)
+
+    # final aggregate (paper §4.3) — the run's one unpack boundary
+    avg = final_average(unpack_w(state["params"], spec))
+    if losses:
+        print(f"final: last-loss={losses[-1]:.4f} "
+              f"(start {losses[0]:.4f})", flush=True)
+    return {"losses": losses, "step_seconds": step_seconds,
+            "n_good": n_good, "params": avg}
+
+
+if __name__ == "__main__":
+    main()

@@ -31,6 +31,10 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute subprocess compile tests (deselect with "
         "-m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skips without one — run on the card with -m cuda")
 
 
 @pytest.fixture(scope="session")
