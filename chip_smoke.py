@@ -6,17 +6,29 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. build every CUDA kernel of the port from its sources (one nvcc per
      source, all started together) and print the build time;
-  2. hold each kernel of the main path against its plain-torch version at
-     the main path's shapes (W=4, R=262848, P=1; f32 and int8 externals,
-     a partial row range), with CUDA-event times for both and each
-     kernel's bound;
-  3. a small-input check: 3 pipelined int8 steps of the reduced model on
-     the GPU against the same steps on the CPU (the plain versions, which
-     the CPU tests hold to the JAX reference);
-  4. the main path: ``repro_torch.launch.train`` on full smollm-135m, W=4,
-     --pipelined --wire-format int8, with the launch counters zeroed just
-     before and read just after — every kernel must have run every round;
-  5. a per-component breakdown of one full-size pipelined step.
+  2. [kernels] hold each kernel against its plain-torch version, with
+     CUDA-event times for both, each kernel's bound, and a bitwise repeat
+     of each reduce: B1r/B1a at the pipelined path's shapes (W=4,
+     R=262848, P=1; f32 and int8 externals, a partial row range); B2r/B2a
+     at the pytree path's (W=4, R=262784, P=1, the partition-1 mask);
+     B3r/B3a on one smollm-135m replica (R=262784) at P=1 and P=4;
+  3. [check] small-input checks, the GPU (kernels) against the CPU (plain
+     versions, which the CPU tests hold to the JAX reference) on the
+     reduced model from distinct worker starts, so that gates open: 3
+     pipelined int8 steps; 3 pytree steps with use_fused=True in 'leaves'
+     mode (f32 and int8 wire) and 'rows' mode;
+  4. [main] the pipelined path: ``repro_torch.launch.train`` on full
+     smollm-135m, W=4, --pipelined --wire-format int8, launch counters
+     zeroed just before and read just after — B1r/B1a every round;
+  5. [breakdown]/[profile] the pieces of one full-size pipelined step;
+  6. [pytree] the pytree engine at full width through make_train_step
+     with ASGDConfig(use_fused=True) and the trainer's loop
+     (train.run_steps), counters zeroed before and read after — B2r/B2a
+     every round — its breakdown and profile; one --algo sync and one
+     --algo silent step through train.main;
+  7. [fused-update] asgd_update(use_fused=True) on one full smollm-135m
+     replica at P=1 and P=4 against use_fused=False, counters zeroed
+     before and read after — B3r/B3a launched.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and last the device JSON line.  Without a GPU, or without the repo's
 sources beside it, it exits non-zero and prints no result.
@@ -39,8 +51,12 @@ EPS, LR = 0.05, 0.05
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12               # f32 outside the tensor cores
 MAIN_STEPS = 8
+PYTREE_STEPS = 8
 TOL_REDUCE_RTOL = 1e-5               # sums in another order
 TOL_APPLY_ATOL = 1e-6                # elementwise; the same op order
+TOL_FUSED_ATOL = 1e-5                # fused vs unfused update: sums in
+#                                      other orders, then one division
+START_NOISE = 0.1                    # [check]: per-worker start offsets
 
 
 def log(msg):
@@ -70,25 +86,71 @@ def bound_ms(n_bytes, n_flops):
                                  else "operations")
 
 
-def make_operands(torch, device, wire):
-    """Main-path-shaped operands made on the device from a seed: half the
-    workers' externals ahead of the local step, half behind."""
+def wq_shape():
+    """(W, layers, d_model, heads, head_dim) of smollm-135m's stacked
+    query weights: (4, 30, 576, 9, 64)."""
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch("smollm-135m")
+    return (W, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.resolved_head_dim)
+
+
+def make_operands(torch, device, wire, wn=W, rows=R, p=P):
+    """Operands made on the device from a seed: w, dw (wn, rows, 512),
+    ext (wn, p, rows, 512) with the (worker, external) pairs alternately
+    ahead of the local step and behind it (gates far from the Parzen
+    threshold, and mixed)."""
     from repro_torch.core.packing import quantize_rows
     g = torch.Generator(device=device).manual_seed(0)
-    w = 0.05 * torch.randn((W, R, 512), generator=g, device=device)
-    dw = 0.01 * torch.randn((W, R, 512), generator=g, device=device)
-    side = torch.tensor([0.5, -0.5, 0.5, -0.5], device=device)
-    ext = (w - side[:, None, None] * dw
-           + 0.02 * torch.randn((W, R, 512), generator=g, device=device))
-    ext = ext[:, None]
+    w = 0.05 * torch.randn((wn, rows, 512), generator=g, device=device)
+    dw = 0.01 * torch.randn((wn, rows, 512), generator=g, device=device)
+    side = torch.tensor([0.5 if (i + j) % 2 == 0 else -0.5
+                         for i in range(wn) for j in range(p)],
+                        device=device).reshape(wn, p, 1, 1)
+    ext = (w[:, None] - side * dw[:, None]
+           + 0.02 * torch.randn((wn, p, rows, 512), generator=g,
+                                device=device))
     scales = None
     if wire == "int8":
         ext, scales = quantize_rows(ext, BLOCK_ROWS)
     return w, dw, ext, scales
 
 
+def check_reduce(torch, name, acc, acc_p, repeat):
+    """Kernel vs plain sums within rtol, and a bitwise repeat."""
+    rel = float(((acc - acc_p).abs() / acc_p.abs().clamp_min(1e-30)).max())
+    if not torch.allclose(acc, acc_p, rtol=TOL_REDUCE_RTOL, atol=0):
+        raise AssertionError(f"{name}: kernel vs plain rel err {rel:.3e} > "
+                             f"{TOL_REDUCE_RTOL}")
+    for _ in range(2):
+        if not torch.equal(repeat(), acc):
+            raise AssertionError(f"{name}: the reduce is not reproducible")
+    return float((acc - acc_p).abs().max()), rel
+
+
+def check_apply(torch, name, out, out_p):
+    err = float((out - out_p).abs().max())
+    if not err <= TOL_APPLY_ATOL:
+        raise AssertionError(f"{name}: kernel vs plain max abs err "
+                             f"{err:.3e} > {TOL_APPLY_ATOL}")
+    return err
+
+
+def time_pass(torch, results, key, label, fn, plain, err, n_bytes, n_flops,
+              note=""):
+    ms = cuda_ms(fn, 20)
+    plain_ms = cuda_ms(plain, 5)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    results[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "max_abs_err": err}
+    log(f"[kernels] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.3f} GB), "
+        f"{b_ms / ms:.1%} of bound, max abs err {err:.3e}{note}")
+
+
 def phase_kernels(torch, device):
-    """B1r/B1a against their plain versions at the main path's shapes."""
+    """B1r/B1a against their plain versions at the pipelined path's
+    shapes."""
     from repro_torch.kernels.gossip_blend import gossip_gates
     from repro_torch.kernels.gossip_blend.kernel import (
         gossip_apply_w_resident, gossip_reduce_w_resident)
@@ -107,12 +169,7 @@ def phase_kernels(torch, device):
             w, dw, ext, ROW_RANGE, scales, block_rows=BLOCK_ROWS)
         acc, acc_p = red(), red_plain()
         torch.cuda.synchronize()
-        err_r = float((acc - acc_p).abs().max())
-        rel = float(((acc - acc_p).abs() / acc_p.abs().clamp_min(1e-30))
-                    .max())
-        if not torch.allclose(acc, acc_p, rtol=TOL_REDUCE_RTOL, atol=0):
-            raise AssertionError(f"reduce/{wire}: kernel vs plain rel err "
-                                 f"{rel:.3e} > {TOL_REDUCE_RTOL}")
+        err_r, rel = check_reduce(torch, f"B1r/{wire}", acc, acc_p, red)
         gates = gossip_gates(acc_p, EPS)
         inv = 1.0 / (gates.sum(dim=1) + 1.0)
         app = lambda: gossip_apply_w_resident(           # noqa: E731
@@ -123,10 +180,7 @@ def phase_kernels(torch, device):
             block_rows=BLOCK_ROWS)
         out, out_p = app(), app_plain()
         torch.cuda.synchronize()
-        err_a = float((out - out_p).abs().max())
-        if not err_a <= TOL_APPLY_ATOL:
-            raise AssertionError(f"apply/{wire}: kernel vs plain max abs "
-                                 f"err {err_a:.3e} > {TOL_APPLY_ATOL}")
+        err_a = check_apply(torch, f"B1a/{wire}", out, out_p)
         del out, out_p
         # bytes each function must move: reduce reads w, dw, ext (and the
         # scales) on the range's rows and writes (W, P, 3); apply reads w,
@@ -135,46 +189,154 @@ def phase_kernels(torch, device):
         n_all = W * R * 512
         deq = P if scales is not None else 0       # dequantize multiplies
         sc_b = 0 if scales is None else W * P * (rows_in // BLOCK_ROWS) * 4
-        passes = (
-            ("reduce", red, red_plain, err_r, f" (max rel {rel:.3e})",
-             n_in * (4 + 4 + P * ext_b) + sc_b + W * P * 3 * 4,
-             n_in * (2 + 6 * P + deq)),
-            ("apply", app, app_plain, err_a, "",
-             n_all * 12 + n_in * P * ext_b + sc_b + W * P * 4 + W * 4 + 4,
-             n_all * 2 + n_in * (4 + 2 * P + deq)),
-        )
-        for name, fn, plain, err, note, n_bytes, n_flops in passes:
-            ms = cuda_ms(fn, 20)
-            plain_ms = cuda_ms(plain, 5)
-            b_ms, b_by = bound_ms(n_bytes, n_flops)
-            results[(name, wire)] = {"ms": ms, "plain_ms": plain_ms,
-                                     "bound_ms": b_ms, "bound_by": b_by,
-                                     "max_abs_err": err}
-            log(f"[kernels] {name:6s} {wire:4s} rows [{r0},{r1}) of R={R}: "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.3f} GB), "
-                f"{b_ms / ms:.1%} of bound, max abs err {err:.3e}{note}")
+        where = f"rows [{r0},{r1}) of R={R}"
+        time_pass(torch, results, ("B1r", wire), f"B1r {wire:4s} {where}",
+                  red, red_plain, err_r,
+                  n_in * (4 + 4 + P * ext_b) + sc_b + W * P * 3 * 4,
+                  n_in * (2 + 6 * P + deq),
+                  f" (max rel {rel:.3e}, bitwise repeatable)")
+        time_pass(torch, results, ("B1a", wire), f"B1a {wire:4s} {where}",
+                  app, app_plain, err_a,
+                  n_all * 12 + n_in * P * ext_b + sc_b + W * P * 4 + W * 4
+                  + 4, n_all * 2 + n_in * (4 + 2 * P + deq))
         del w, dw, ext, scales, acc, acc_p
         torch.cuda.empty_cache()
     return results
 
 
+def pytree_shapes(torch, device):
+    """(R of the pytree path's non-group W-packed spec, the partition-1
+    mask on it, R of one replica's packed spec) for full smollm-135m."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.gossip import leaf_groups
+    from repro_torch.core.packing import (pack_group_mask, pack_spec,
+                                          pack_spec_w)
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.model import init_model
+
+    params = init_model(get_arch("smollm-135m"), 0, device=device)
+    wp = tree_map(lambda x: x.expand((W,) + tuple(x.shape)), params)
+    spec = pack_spec_w(wp, block_rows=BLOCK_ROWS)
+    mask = pack_group_mask(leaf_groups(wp, 4), 1, spec, device=device)
+    return spec.rows, mask, pack_spec(params, BLOCK_ROWS).rows
+
+
+def phase_batched_kernels(torch, device):
+    """B2r/B2a at the pytree path's shapes (W=4, P=1, the partition-1
+    mask) and B3r/B3a on one replica at P=1 and P=4, against their plain
+    versions."""
+    from repro_torch.kernels.gossip_blend import gossip_gates
+    from repro_torch.kernels.gossip_blend.kernel import (
+        gossip_apply, gossip_apply_w, gossip_reduce, gossip_reduce_w)
+    from repro_torch.kernels.gossip_blend.ref import (
+        gossip_apply_plain, gossip_apply_w_plain, gossip_reduce_plain,
+        gossip_reduce_w_plain)
+
+    rows_w, mask, rows_1 = pytree_shapes(torch, device)
+    results = {}
+    w, dw, ext, _ = make_operands(torch, device, "f32", W, rows_w, 1)
+    red = lambda: gossip_reduce_w(w, dw, ext, mask)         # noqa: E731
+    red_plain = lambda: gossip_reduce_w_plain(w, dw, ext, mask)  # noqa
+    acc, acc_p = red(), red_plain()
+    torch.cuda.synchronize()
+    err_r, rel = check_reduce(torch, "B2r", acc, acc_p, red)
+    gates = gossip_gates(acc_p, EPS)
+    inv = 1.0 / (gates.sum(dim=1) + 1.0)
+    app = lambda: gossip_apply_w(w, dw, ext, gates, inv, mask,  # noqa
+                                 eps=EPS)
+    app_plain = lambda: gossip_apply_w_plain(  # noqa: E731
+        w, dw, ext, gates, inv, mask, eps=EPS)
+    out, out_p = app(), app_plain()
+    torch.cuda.synchronize()
+    err_a = check_apply(torch, "B2a", out, out_p)
+    del out, out_p
+    # bytes each function must move: the worker-shared mask once; the
+    # reduce reads w, dw, ext only where the mask is 1 (every term is 0
+    # elsewhere) and writes (W, 1, 3); the apply reads w, dw everywhere, ext
+    # where the mask is 1, gates/inv, and writes out.  Ops per element
+    # where the mask is 1: masking, the 3 products and sums; elsewhere the
+    # apply's plain step
+    n_mask = rows_w * 512
+    n_on = int(mask.count_nonzero())
+    n_all, n_in = W * n_mask, W * n_on
+    where = (f"W={W} P=1 R={rows_w} mask ({n_on / n_mask:.2%} of it "
+             f"ones)")
+    time_pass(torch, results, ("B2r", "f32"), f"B2r {where}", red,
+              red_plain, err_r, n_mask * 4 + n_in * 12 + W * 3 * 4,
+              n_in * 9, f" (max rel {rel:.3e}, bitwise repeatable; "
+              f"gates {gates.flatten().tolist()})")
+    time_pass(torch, results, ("B2a", "f32"), f"B2a {where}", app,
+              app_plain, err_a, n_mask * 4 + n_all * 12 + n_in * 4 + W * 8,
+              n_all * 2 + n_in * 6)
+    del w, dw, ext, acc, acc_p, mask
+    torch.cuda.empty_cache()
+
+    for p in (1, 4):
+        w, dw, ext, _ = make_operands(torch, device, "f32", 1, rows_1, p)
+        w, dw, ext = w[0], dw[0], ext[0]
+        red = lambda: gossip_reduce(w, dw, ext)             # noqa: E731
+        red_plain = lambda: gossip_reduce_plain(w, dw, ext)  # noqa: E731
+        acc, acc_p = red(), red_plain()
+        torch.cuda.synchronize()
+        err_r, rel = check_reduce(torch, f"B3r/P={p}", acc, acc_p, red)
+        gates = gossip_gates(acc_p, EPS)
+        inv = 1.0 / (gates.sum() + 1.0)
+        app = lambda: gossip_apply(w, dw, ext, gates, inv,  # noqa: E731
+                                   eps=EPS)
+        app_plain = lambda: gossip_apply_plain(  # noqa: E731
+            w, dw, ext, gates, inv, eps=EPS)
+        out, out_p = app(), app_plain()
+        torch.cuda.synchronize()
+        err_a = check_apply(torch, f"B3a/P={p}", out, out_p)
+        del out, out_p
+        n = rows_1 * 512
+        where = f"one replica R={rows_1} P={p}"
+        time_pass(torch, results, ("B3r", p), f"B3r {where}", red,
+                  red_plain, err_r, n * 4 * (2 + p) + p * 12,
+                  n * (2 + 5 * p), f" (max rel {rel:.3e}, bitwise "
+                  f"repeatable; gates {gates.tolist()})")
+        time_pass(torch, results, ("B3a", p), f"B3a {where}", app,
+                  app_plain, err_a, n * 4 * (3 + p) + p * 4 + 4,
+                  n * (2 * p + 5))
+        del w, dw, ext, acc, acc_p
+        torch.cuda.empty_cache()
+    return results
+
+
+def worker_starts(torch, params):
+    """W distinct CPU starting states for the [check] phases: the weights
+    plus seeded noise (std START_NOISE) per worker.  Identical starts give
+    <dw, w - ext> = 0 and shut every gate; these open some in the first
+    admitted rounds, so the checks cover the gated mean."""
+    from repro_torch.core.tree import tree_map
+    g = torch.Generator().manual_seed(1)
+    return tree_map(lambda x: (x.expand((W,) + tuple(x.shape)) + START_NOISE
+                               * torch.randn((W,) + tuple(x.shape),
+                                             generator=g)).contiguous(),
+                    params)
+
+
+def check_admitted(tag, n_good):
+    if not sum(n_good) > 0:
+        raise AssertionError(f"{tag}: no message admitted (n_good {n_good})"
+                             f" — the check would not cover the blend")
+
+
 def phase_small_check(torch, device):
     """3 pipelined int8 steps of the reduced model on the GPU (kernels) and
-    on the CPU (plain versions) from the same weights, batches and draws:
-    losses within rel 1e-4, n_good equal, ensembles within atol 1e-4."""
+    on the CPU (plain versions) from the same distinct worker starts,
+    batches and draws: losses within rel 1e-4, n_good equal and not all 0,
+    ensembles within atol 1e-4."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import gossip as G
     from repro_torch.core.asgd import ASGDConfig
     from repro_torch.core.packing import pack_spec_w, pack_w
-    from repro_torch.core.tree import tree_map
     from repro_torch.data.synthetic import lm_batch_iterator
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.model import init_model
 
     cfg = get_arch("smollm-135m").reduced()
-    params = init_model(cfg, 0, device="cpu")
-    wp = tree_map(lambda x: x.expand((W,) + tuple(x.shape)), params)
+    wp = worker_starts(torch, init_model(cfg, 0, device="cpu"))
     gcfg = G.GossipConfig(shifts=(1, 2), partial_blocks=4, delay=1,
                           wire_format="int8")
     acfg = ASGDConfig(eps=EPS)
@@ -205,6 +367,7 @@ def phase_small_check(torch, device):
     err = float((gpu_pk - cpu_pk).abs().max())
     if not err <= 1e-4:
         raise AssertionError(f"small check: ensembles differ by {err:.3e}")
+    check_admitted("small check", [g for _, g in gpu])
     log(f"[check] reduced smollm, 3 pipelined int8 steps: GPU vs CPU "
         f"losses {[round(l, 6) for l, _ in gpu]} vs "
         f"{[round(l, 6) for l, _ in cpu]}, n_good {[g for _, g in gpu]}, "
@@ -234,8 +397,7 @@ def phase_main_path(torch):
                 f"main path: {name} launched {counts.get(name, 0)} times "
                 f"in {MAIN_STEPS} gossip rounds: {counts}")
     wq = out["params"]["scan"]["pos0"]["attn"]["wq"]
-    if tuple(wq.shape) != (W, 30, 576, 9, 64) or \
-            not bool(torch.isfinite(wq).all()):
+    if tuple(wq.shape) != wq_shape() or not bool(torch.isfinite(wq).all()):
         raise AssertionError(f"main path: final average wq "
                              f"{tuple(wq.shape)} not finite/shaped")
     steady = sorted(out["step_seconds"][1:])
@@ -296,13 +458,21 @@ def phase_breakdown(torch, device):
     step = make_train_step(cfg, pack_spec=spec, gcfg=gcfg, acfg=acfg,
                            pipelined=True)
     batch = {"tokens": tokens}
-    step(packed, state, 0, batch, 0, 1)
+    profile_step(torch, "profile", lambda: step(packed, state, 0, batch, 0,
+                                                1))
+
+
+def profile_step(torch, tag, run):
+    """Wall time, device busy time and idle share of one call of ``run``
+    (after a warm-up call), and the top device kernels, from a
+    torch.profiler trace."""
+    run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(packed, state, 0, batch, 0, 1)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -320,14 +490,236 @@ def phase_breakdown(torch, device):
                 (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     if spans:
-        log(f"[profile] one step: wall {wall_us / 1e3:.3f} ms, device busy "
+        log(f"[{tag}] one step: wall {wall_us / 1e3:.3f} ms, device busy "
             f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.1%}, "
             f"{len(spans)} device ops")
         for name, us in top:
-            log(f"[profile]   {us / 1e3:8.3f} ms  {name[:100]}")
+            log(f"[{tag}]   {us / 1e3:8.3f} ms  {name[:100]}")
     else:
-        log("[profile] the trace holds no device events: device busy share "
+        log(f"[{tag}] the trace holds no device events: device busy share "
             "not measured")
+
+
+def pytree_gcfg(mode="leaves", wire_format=None):
+    from repro_torch.core.gossip import GossipConfig
+    return GossipConfig(shifts=(1, 2), partial_blocks=4, partial_mode=mode,
+                        delay=1, wire_format=wire_format)
+
+
+def phase_pytree_check(torch, device):
+    """3 pytree-engine steps with use_fused=True of the reduced model on
+    the GPU (B2 kernels) and on the CPU (plain versions) from the same
+    distinct worker starts, batches and draws, in 'leaves' mode (f32 and
+    int8 wire) and 'rows' mode: losses within rel 1e-4, n_good equal and
+    not all 0, states within atol 1e-4."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.asgd import ASGDConfig
+    from repro_torch.core.gossip import init_gossip_state
+    from repro_torch.core.tree import flatten_sorted, tree_map
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import batch_iterators, run_steps
+    from repro_torch.models.model import init_model
+
+    cfg = get_arch("smollm-135m").reduced()
+    starts = worker_starts(torch, init_model(cfg, 0, device="cpu"))
+    acfg = ASGDConfig(eps=EPS, use_fused=True)
+    for mode, wire in (("leaves", None), ("leaves", "int8"),
+                       ("rows", None)):
+        gcfg = pytree_gcfg(mode, wire)
+        step = make_train_step(cfg, gcfg=gcfg, acfg=acfg)
+        runs = {}
+        for dev in ("cpu", device):
+            wp = tree_map(lambda x: x.to(dev), starts)
+            state = {"params": wp, "gossip": init_gossip_state(wp, gcfg),
+                     "opt": 0}
+            out = run_steps(step, state, batch_iterators(cfg, W, 2, 32, 0),
+                            torch.Generator().manual_seed(0), gcfg, 3, dev,
+                            log_every=100)
+            runs[str(dev)] = (out, [x.cpu() for x in
+                                    flatten_sorted(state["params"])[0]])
+        (cpu, cpu_p), (gpu, gpu_p) = runs["cpu"], runs[str(device)]
+        for lc, lg in zip(cpu["losses"], gpu["losses"]):
+            if abs(lg - lc) > 1e-4 * abs(lc):
+                raise AssertionError(f"pytree check {mode}/{wire}: GPU loss "
+                                     f"{lg} vs CPU {lc}")
+        if gpu["n_good"] != cpu["n_good"]:
+            raise AssertionError(f"pytree check {mode}/{wire}: n_good GPU "
+                                 f"{gpu['n_good']} vs CPU {cpu['n_good']}")
+        err = max(float((a - b).abs().max()) for a, b in zip(gpu_p, cpu_p))
+        if not err <= 1e-4:
+            raise AssertionError(f"pytree check {mode}/{wire}: states "
+                                 f"differ by {err:.3e}")
+        check_admitted(f"pytree check {mode}/{wire}", gpu["n_good"])
+        log(f"[check] reduced smollm, 3 pytree steps, use_fused, {mode} "
+            f"wire {wire or 'f32'}: GPU vs CPU losses "
+            f"{[round(l, 6) for l in gpu['losses']]} vs "
+            f"{[round(l, 6) for l in cpu['losses']]}, n_good "
+            f"{gpu['n_good']}, max |state diff| {err:.3e}")
+
+
+def phase_pytree(torch, device):
+    """The pytree engine at full width: smollm-135m, W=4, batch 2, seq 128,
+    'leaves' mode, p=4, delay 1, ASGDConfig(eps=0.05, use_fused=True),
+    through make_train_step and train.run_steps; then one --algo sync and
+    one --algo silent step through train.main.  Returns the launch counts
+    of the B2 run."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.asgd import ASGDConfig
+    from repro_torch.core.gossip import init_gossip_state
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.gossip_blend.kernel import APPLY_W, REDUCE_W
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_model
+
+    cfg = get_arch("smollm-135m")
+    gcfg = train.gossip_config(W)
+    acfg = ASGDConfig(eps=EPS, use_fused=True)
+    params = init_model(cfg, 0, device=device)
+    wp = tree_map(lambda x: x.expand((W,) + tuple(x.shape)).contiguous(),
+                  params)
+    del params
+    state = {"params": wp, "gossip": init_gossip_state(wp, gcfg), "opt": 0}
+    del wp
+    step = make_train_step(cfg, gcfg=gcfg, acfg=acfg)
+    log(f"[pytree] full smollm-135m W={W} batch 2 seq 128 leaves p=4 "
+        f"delay 1, use_fused, {PYTREE_STEPS} steps")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = train.run_steps(step, state,
+                          train.batch_iterators(cfg, W, 2, 128, 0),
+                          torch.Generator().manual_seed(0), gcfg,
+                          PYTREE_STEPS, device, log_every=1)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    losses = out["losses"]
+    if len(losses) != PYTREE_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"pytree path: losses {losses}")
+    for name in (REDUCE_W, APPLY_W):
+        if counts.get(name, 0) != PYTREE_STEPS:
+            raise AssertionError(
+                f"pytree path: {name} launched {counts.get(name, 0)} times "
+                f"in {PYTREE_STEPS} rounds: {counts}")
+    wq = state["params"]["scan"]["pos0"]["attn"]["wq"]
+    if tuple(wq.shape) != wq_shape() or not bool(torch.isfinite(wq).all()):
+        raise AssertionError(f"pytree path: wq {tuple(wq.shape)} not "
+                             f"finite/shaped")
+    steady = sorted(out["step_seconds"][1:])
+    log(f"[pytree] launches {counts} over {PYTREE_STEPS} steps; step "
+        f"seconds {[round(x, 4) for x in out['step_seconds']]} (first "
+        f"includes warm-up); steady median "
+        f"{steady[len(steady) // 2] * 1e3:.2f} ms; n_good {out['n_good']};"
+        f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    pytree_breakdown(torch, device, cfg, state, gcfg, acfg, step)
+    del state, out
+    torch.cuda.empty_cache()
+    for algo in ("sync", "silent"):
+        argv = ["--arch", "smollm-135m", "--workers", str(W), "--algo",
+                algo, "--steps", "1", "--batch", "2", "--seq", "128"]
+        res = train.main(argv)
+        if not all(map(math.isfinite, res["losses"])):
+            raise AssertionError(f"--algo {algo}: losses {res['losses']}")
+        log(f"[pytree] train.main {' '.join(argv)}: loss "
+            f"{res['losses'][0]:.4f}, {res['step_seconds'][0] * 1e3:.1f} ms "
+            f"(first step, warm-up included)")
+        del res
+        torch.cuda.empty_cache()
+    return counts
+
+
+def pytree_breakdown(torch, device, cfg, state, gcfg, acfg, step):
+    """CUDA-event times of the pieces of one full-size pytree step: the
+    forward/backward, the exchange, the packs (params, grads, ext and the
+    mask), the unpack, and the blend (B2r + gates + B2a); then a profile
+    of one whole step."""
+    from repro_torch.core import gossip as G
+    from repro_torch.core.packing import (pack_group_mask, pack_spec_w,
+                                          pack_w, unpack_w)
+    from repro_torch.kernels.gossip_blend import gossip_blend_worker_batched
+    from repro_torch.launch.steps import tree_loss_and_grad
+
+    params = state["params"]
+    tokens = torch.randint(0, cfg.vocab, (W, 2, 128), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(0))
+    batch = {"tokens": tokens}
+    _, grads = tree_loss_and_grad(cfg, params, batch)
+    groups = G.leaf_groups(params, gcfg.partial_blocks)
+    ext = G.exchange_leaves(params, groups, 0, 1, gcfg)
+    spec = pack_spec_w(params, block_rows=gcfg.fused_block_rows)
+
+    def packs():
+        return (pack_w(params, spec), pack_w(grads, spec),
+                pack_w(ext, spec)[:, None],
+                pack_group_mask(groups, 1, spec, device=device))
+
+    w3, d3, e4, mask = packs()
+    out3, _ = gossip_blend_worker_batched(w3, d3, e4, EPS, mask2d=mask)
+    t_fb = cuda_ms(lambda: tree_loss_and_grad(cfg, params, batch), 3)
+    t_ex = cuda_ms(lambda: G.exchange_leaves(params, groups, 0, 1, gcfg), 5)
+    t_pk = cuda_ms(packs, 5)
+    t_un = cuda_ms(lambda: unpack_w(out3, spec), 5)
+    t_bl = cuda_ms(lambda: gossip_blend_worker_batched(
+        w3, d3, e4, EPS, mask2d=mask), 5)
+    total = t_fb + t_ex + t_pk + t_un + t_bl
+    parts = (("forward+backward", t_fb), ("exchange", t_ex),
+             ("pack x3 + mask", t_pk), ("unpack", t_un),
+             ("blend (B2r + gates + B2a)", t_bl))
+    log("[pytree-breakdown] full smollm-135m W=4 batch 2 seq 128 leaves "
+        "use_fused: " + ", ".join(f"{n} {t:.3f} ms ({t / total:.1%})"
+                                  for n, t in parts)
+        + f"; sum {total:.3f} ms")
+    del w3, d3, e4, mask, out3, ext, grads
+    gossip = G.GossipState(buf=state["gossip"].buf, buf_idx=1, step=2)
+    profile_step(torch, "pytree-profile",
+                 lambda: step(params, gossip, 0, batch, 0, 1))
+
+
+def phase_fused_update(torch, device):
+    """asgd_update(use_fused=True) on one full smollm-135m replica tree at
+    P=1 and P=4 against use_fused=False on the same inputs: n_good equal
+    (the externals sit half a step ahead of or behind the state, far from
+    the threshold), states within atol 1e-5.  Returns the launch counts of
+    the fused calls."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.asgd import ASGDConfig, asgd_update
+    from repro_torch.core.tree import flatten_sorted, tree_map
+    from repro_torch.kernels.gossip_blend.kernel import APPLY_1, REDUCE_1
+    from repro_torch.models.model import init_model
+
+    w = init_model(get_arch("smollm-135m"), 0, device=device)
+    g = torch.Generator(device=device).manual_seed(1)
+    dw = tree_map(lambda x: 0.01 * torch.randn(x.shape, generator=g,
+                                                device=device), w)
+    exts = [tree_map(lambda x, d, c=c: x - c * d + 0.02 * torch.randn(
+        x.shape, generator=g, device=device), w, dw)
+        for c in (0.5, -0.5, 0.5, -0.5)]
+    counts = {}
+    for p in (1, 4):
+        K.reset_launch_counts()
+        fused, ng_f = asgd_update(w, dw, exts[:p],
+                                  ASGDConfig(eps=EPS, use_fused=True))
+        torch.cuda.synchronize()
+        for name, n in K.launch_counts().items():
+            counts[name] = counts.get(name, 0) + n
+        plain, ng_p = asgd_update(w, dw, exts[:p], ASGDConfig(eps=EPS))
+        err = max(float((a - b).abs().max()) for a, b in zip(
+            flatten_sorted(fused)[0], flatten_sorted(plain)[0]))
+        if float(ng_f) != float(ng_p) or not err <= TOL_FUSED_ATOL:
+            raise AssertionError(f"fused update P={p}: n_good {ng_f} vs "
+                                 f"{ng_p}, max abs diff {err:.3e}")
+        log(f"[fused-update] one smollm-135m replica, P={p}: use_fused vs "
+            f"not: n_good {float(ng_f):.0f} == {float(ng_p):.0f}, max abs "
+            f"diff {err:.3e}")
+        del fused, plain
+    for name in (REDUCE_1, APPLY_1):
+        if counts.get(name, 0) != 2:
+            raise AssertionError(f"fused update: {name} launched "
+                                 f"{counts.get(name, 0)} times: {counts}")
+    log(f"[fused-update] launches {counts}")
+    return counts
 
 
 def main() -> int:
@@ -343,8 +735,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import kernels as K
     from repro_torch import set_full_fp32_precision
-    from repro_torch.kernels.gossip_blend.kernel import (APPLY, REDUCE,
-                                                         SOURCE)
+    from repro_torch.kernels.gossip_blend.kernel import (
+        APPLY, APPLY_1, APPLY_W, REDUCE, REDUCE_1, REDUCE_W, SOURCE)
 
     set_full_fp32_precision()
     device = torch.device("cuda")
@@ -358,21 +750,32 @@ def main() -> int:
         f"{[str(p.relative_to(ROOT)) for p in built]}")
 
     kres = phase_kernels(torch, device)
+    kres.update(phase_batched_kernels(torch, device))
     phase_small_check(torch, device)
+    phase_pytree_check(torch, device)
     counts = phase_main_path(torch)
     phase_breakdown(torch, device)
+    counts.update(phase_pytree(torch, device))
+    counts.update(phase_fused_update(torch, device))
 
-    source = str(SOURCE.relative_to(ROOT))
+    gb = "src/repro/kernels/gossip_blend/kernel.py"
     kernels = []
-    for name, pass_, line in ((REDUCE, "reduce", 370), (APPLY, "apply", 412)):
-        r = kres[(pass_, "int8")]     # the main path's wire
+    # (table name, kernel name, source, reference def line, timed case)
+    for tag, name, src, line, case in (
+            ("B1r", REDUCE, SOURCE, 370, "int8"),      # the main path's
+            ("B1a", APPLY, SOURCE, 412, "int8"),       # wire
+            ("B2r", REDUCE_W, SOURCE, 225, "f32"),
+            ("B2a", APPLY_W, SOURCE, 259, "f32"),
+            ("B3r", REDUCE_1, SOURCE, 115, 4),   # P=4
+            ("B3a", APPLY_1, SOURCE, 141, 4)):
+        r = kres[(tag, case)]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": f"src/repro/kernels/gossip_blend/kernel.py:{line}",
-            "launches": counts[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "name": name, "route": "cuda",
+            "source": str(src.relative_to(ROOT)),
+            "replaces": f"{gb}:{line}", "launches": counts[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,9 +7,10 @@ Notation (paper -> code):
     delta(i, j)           gate       Parzen-window admission, eq. (4)
     lambda(w)             nonempty   empty-buffer mask, eq. (3)
 
-States are tensors or nested dicts of tensors.  The fused single-worker
-update (``asgd_update_fused`` / ``asgd_update_packed``) needs kernel B3
-and is not ported yet (ROADMAP.md queue A).
+States are tensors or nested dicts of tensors.  ``ASGDConfig.use_fused``
+routes the update through the single-worker gossip-blend kernels (B3) on
+the pack-once ``(R, LANE)`` layout (``asgd_update_fused``;
+``asgd_update_packed`` for callers that keep the state packed).
 """
 from __future__ import annotations
 
@@ -33,7 +34,9 @@ class ASGDConfig:
     elastic: apply the attraction directly to the state (EASGD-style)
       instead of scaling it by eps inside the gradient step.
     elastic_alpha: blend strength of the elastic variant.
-    use_fused: the reference's fused single-worker path; not ported yet.
+    use_fused: route the update through the fused gossip-blend kernels:
+      all P gates and the gated mean in two passes over the packed state
+      (B3 in ``asgd_update``; B2 in the pytree gossip engine).
     """
 
     eps: float = 0.05
@@ -75,21 +78,31 @@ def blend_externals(w_i, dw_i, externals: Sequence[Any], eps,
     return attraction, n_good
 
 
+def asgd_delta_bar(w_i, dw_i, externals: Sequence[Any], cfg: ASGDConfig):
+    """Paper eq. (6): the externally modified step
+    Delta_bar = [w_i - mean(admitted ∪ {w_i})] + Delta_M(w_i).
+    Returns (delta_bar, n_good)."""
+    if cfg.silent or not externals:
+        return dw_i, torch.zeros((), dtype=torch.float32)
+    attraction, n_good = blend_externals(
+        w_i, dw_i, externals, cfg.eps, use_parzen=cfg.use_parzen)
+    return tree_axpy(1.0, attraction, dw_i), n_good
+
+
 def asgd_update(w_i, dw_i, externals: Sequence[Any], cfg: ASGDConfig):
     """One full ASGD state update (paper alg. 5 line 8 + fig. 4 step IV).
 
     Paper-faithful:   w <- w - eps * (attraction + Delta_M)
     Elastic variant:  w <- (w - eps * Delta_M) - alpha * attraction
 
+    With cfg.use_fused the update goes to :func:`asgd_update_fused`.
     Returns (w_next, n_good).
     """
-    if cfg.use_fused:
-        raise NotImplementedError(
-            "ASGDConfig.use_fused needs the single-worker gossip-blend "
-            "kernel (B3), not ported yet — ROADMAP.md queue A")
     if cfg.silent or not externals:
         return (tree_axpy(-cfg.eps, dw_i, w_i),
                 torch.zeros((), dtype=torch.float32))
+    if cfg.use_fused:
+        return asgd_update_fused(w_i, dw_i, externals, cfg)
     attraction, n_good = blend_externals(
         w_i, dw_i, externals, cfg.eps, use_parzen=cfg.use_parzen)
     if cfg.elastic:
@@ -99,3 +112,40 @@ def asgd_update(w_i, dw_i, externals: Sequence[Any], cfg: ASGDConfig):
         delta_bar = tree_axpy(1.0, attraction, dw_i)
         w_next = tree_axpy(-cfg.eps, delta_bar, w_i)
     return w_next, n_good
+
+
+def asgd_update_fused(w_i, dw_i, externals: Sequence[Any], cfg: ASGDConfig,
+                      *, block_rows: int = 64):
+    """:func:`asgd_update` through the single-worker kernels (B3r, B3a):
+    the state, its step and the P externals are each packed once into the
+    padded ``(R, LANE)`` layout, both kernel passes run on the packed
+    arrays, and only the result is unpacked (in the state's dtypes).
+    Returns (w_next, n_good)."""
+    from ..kernels.gossip_blend import gossip_blend_packed
+    from .packing import pack, pack_spec, unpack
+
+    if cfg.silent or not externals:
+        return (tree_axpy(-cfg.eps, dw_i, w_i),
+                torch.zeros((), dtype=torch.float32))
+    spec = pack_spec(w_i, block_rows=block_rows)
+    ext3 = torch.stack([pack(e, spec) for e in externals])
+    out2, gates = gossip_blend_packed(
+        pack(w_i, spec), pack(dw_i, spec), ext3, cfg.eps,
+        use_parzen=cfg.use_parzen, elastic=cfg.elastic,
+        elastic_alpha=cfg.elastic_alpha)
+    return unpack(out2, spec), gates.sum()
+
+
+def asgd_update_packed(w2d, dw2d, ext3d, cfg: ASGDConfig):
+    """:func:`asgd_update` for callers that keep the packed layout: w2d,
+    dw2d (R, LANE) f32, ext3d (P, R, LANE) f32 in, (w2d_next, n_good) out
+    — the two kernel passes and nothing else."""
+    from ..kernels.gossip_blend import gossip_blend_packed
+
+    if cfg.silent or ext3d.shape[0] == 0:
+        return (w2d - cfg.eps * dw2d,
+                torch.zeros((), dtype=torch.float32, device=w2d.device))
+    out2, gates = gossip_blend_packed(
+        w2d, dw2d, ext3d, cfg.eps, use_parzen=cfg.use_parzen,
+        elastic=cfg.elastic, elastic_alpha=cfg.elastic_alpha)
+    return out2, gates.sum()

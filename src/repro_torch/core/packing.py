@@ -302,3 +302,28 @@ def group_ranges_array(spec: WPackSpec, device=None):
                          "(pack_spec_w was called without groups=)")
     return torch.tensor(spec.group_row_ranges, dtype=torch.int32,
                         device=device)
+
+
+def pack_group_mask(groups, block_idx: int, spec: WPackSpec, device=None):
+    """(rows, LANE) f32 0/1 partial-update mask for the worker-batched
+    kernels (B2): 1.0 at every position of a leaf in partition
+    ``block_idx``, 0.0 elsewhere (padding included).  Shared by all W
+    workers — the partition is drawn once per round.
+
+    groups: tree of static leaf group ids (core.gossip.leaf_groups);
+    block_idx: a host int.  On a group-contiguous spec the mask is the
+    partition's row range; otherwise each leaf's segment of the flat
+    layout is set."""
+    if spec.group_row_ranges is not None:
+        r0, r1 = spec.group_row_ranges[block_idx]
+        rows = torch.arange(spec.rows, device=device)
+        m = ((rows >= r0) & (rows < r1)).float()
+        return m[:, None].expand(spec.rows, LANE).contiguous()
+    gids = flatten_sorted(groups)[0]
+    flat = torch.zeros(spec.padded, dtype=torch.float32, device=device)
+    off = 0
+    for gid, size in zip(gids, spec.sizes):
+        if int(gid) == block_idx:
+            flat[off:off + size] = 1.0
+        off += size
+    return flat.reshape(spec.rows, LANE)

@@ -10,7 +10,9 @@ products, the identity the gossip-blend reduce kernel evaluates.
 """
 from __future__ import annotations
 
-from .tree import tree_axpy, tree_sq_dist, tree_sq_norm
+import torch
+
+from .tree import tree_axpy, tree_leaves, tree_map, tree_sq_dist, tree_sq_norm
 
 
 def parzen_gate(w_i, dw_i, w_j, eps):
@@ -20,6 +22,18 @@ def parzen_gate(w_i, dw_i, w_j, eps):
     d_after = tree_sq_dist(stepped, w_j)
     d_before = tree_sq_dist(w_i, w_j)
     return (d_after < d_before).float()
+
+
+def parzen_gate_inner(w_i, dw_i, w_j, eps):
+    """Eq. (4) in its expanded form, one fewer state traversal:
+    ``2 <dw, w_i - w_j> > eps ||dw||^2``.  f32 scalar 1.0 or 0.0."""
+    dots = tree_leaves(tree_map(
+        lambda dw, wi, wj: torch.sum(dw.float() * (wi.float() - wj.float())),
+        dw_i, w_i, w_j))
+    sqn = tree_leaves(tree_map(lambda dw: torch.sum(dw.float() ** 2), dw_i))
+    lhs = 2.0 * sum(dots, torch.zeros((), dtype=torch.float32))
+    rhs = eps * sum(sqn, torch.zeros((), dtype=torch.float32))
+    return (lhs > rhs).float()
 
 
 def gate_from_terms(dot, sq_dw, sq_ext, eps, use_parzen: bool = True):

@@ -1,20 +1,21 @@
-"""Train steps of the packed-resident engines.
+"""Train steps of the gossip engines.
 
-The ``(W, R, LANE)`` packed ensemble is the carried state.  Each step
-differentiates the summed worker losses w.r.t. the ensemble through
-``unpack_w`` views, so ``.grad`` IS the packed local step — the torch form
-of the reference's pipelined step — then runs one gossip round on packed
-rows:
+  pytree     — the state is a tree of (W, ...) leaves; the loss is
+               differentiated leaf by leaf, then asgd_gossip_apply runs
+               one round ('leaves' or 'rows' mode, the blend in plain
+               torch or, with ASGDConfig.use_fused, through B2r/B2a)
+  packed     — the ``(W, R, LANE)`` packed ensemble is the carried state,
+               differentiated through ``unpack_w`` views so ``.grad`` IS
+               the packed local step; asgd_gossip_apply_packed
+  pipelined  — the packed state; initiate_exchange_packed before the
+               forward/backward, consume_exchange_packed after it (blend
+               of the payload launched delay+1 rounds ago)
 
-  packed     — asgd_gossip_apply_packed (exchange + blend of the FIFO head)
-  pipelined  — initiate_exchange_packed before the forward/backward,
-               consume_exchange_packed after it (blend of the payload
-               launched delay+1 rounds ago)
-
-Both engines take the packed gradient and keep the inner-optimizer state
-packed (momentum/Adam are elementwise, so their values match the
-reference's pytree state leaf for leaf, with zeros in the padding).  The
-pytree engine and ``algo='sync'`` are not ported yet (ROADMAP.md queue A).
+``algo`` 'sync' (the synchronous data-parallel baseline) and 'silent'
+(SimuParallelSGD) replace the gossip round on the pytree and packed
+engines.  The packed engines keep the inner-optimizer state packed
+(momentum/Adam are elementwise, so their values match the reference's
+pytree state leaf for leaf, with zeros in the padding).
 """
 from __future__ import annotations
 
@@ -22,10 +23,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.asgd import ASGDConfig
-from ..core.gossip import (GossipConfig, _silent_round,
+from ..core.gossip import (GossipConfig, _silent_round, asgd_gossip_apply,
                            asgd_gossip_apply_packed, consume_exchange_packed,
-                           initiate_exchange_packed)
+                           initiate_exchange_packed, local_sgd_apply,
+                           sync_dp_apply)
 from ..core.packing import unpack_w
+from ..core.tree import flatten_sorted, tree_map, unflatten
 from ..models import model as M
 
 
@@ -41,38 +44,51 @@ def packed_loss_and_grad(cfg: ModelConfig, packed, batch, spec):
     return losses.detach(), leaf.grad
 
 
-def make_train_step(cfg: ModelConfig, *, pack_spec, algo="asgd",
+def tree_loss_and_grad(cfg: ModelConfig, params, batch):
+    """Per-worker losses (W,) and their gradient tree w.r.t. ``params``
+    (a tree of (W, ...) leaves).  The workers' losses are independent, so
+    the gradient of their sum is each worker's own."""
+    leaves, treedef = flatten_sorted(params)
+    xs = [x.detach().requires_grad_(True) for x in leaves]
+    losses = M.loss_fn_w(cfg, unflatten(treedef, xs), batch)
+    grads = torch.autograd.grad(losses.sum(), xs, allow_unused=True)
+    return losses.detach(), unflatten(treedef, [
+        torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads)])
+
+
+def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
                     inner="sgd", gcfg: GossipConfig | None = None,
                     acfg: ASGDConfig | None = None, pipelined=False,
                     lr_schedule=None):
-    """Returns step(packed, gossip, opt_state, batch, shift_idx, block_idx)
-    -> (packed, gossip, opt_state, metrics).
+    """Returns step(params, gossip, opt_state, batch, shift_idx, block_idx)
+    -> (params, gossip, opt_state, metrics).
 
-    packed: (W, R, LANE) f32 ensemble on pack_spec (group-contiguous for
-    'leaves' mode); gossip: init_packed_gossip_state (or
-    init_pipelined_gossip_state when pipelined); batch: {"tokens":
-    (W, B, S)}; shift_idx, block_idx: this round's host-int draws
-    (core.gossip.draw_gossip_indices).  algo: 'asgd' (paper) or 'silent'
-    (SimuParallelSGD: local steps only).  inner: 'sgd' | 'momentum' |
-    'adam'.  lr_schedule (pipelined only): step -> lr, the consume blend's
-    per-round lr operand.
+    pack_spec None selects the pytree engine: params is a tree of (W, ...)
+    leaves, gossip an init_gossip_state.  Otherwise params is the
+    (W, R, LANE) f32 ensemble on pack_spec (group-contiguous for 'leaves'
+    mode) and gossip an init_packed_gossip_state (init_pipelined_
+    gossip_state when pipelined).  batch: {"tokens": (W, B, S)};
+    shift_idx, block_idx: this round's host-int draws
+    (core.gossip.draw_gossip_indices).  algo: 'asgd' (paper), 'silent'
+    (SimuParallelSGD: local steps only) or 'sync' (synchronous
+    data-parallel SGD).  inner: 'sgd' | 'momentum' | 'adam'.  lr_schedule
+    (pipelined only): step -> lr, the consume blend's per-round lr operand.
     """
     from ..optim import adam_update, momentum_update
 
     gcfg = gcfg or GossipConfig()
     acfg = acfg or ASGDConfig(eps=0.01)
-    if algo == "sync":
-        raise NotImplementedError(
-            "algo='sync' (synchronous data-parallel baseline) is not ported "
-            "yet — ROADMAP.md queue A, item 6")
-    if algo not in ("asgd", "silent"):
+    if algo not in ("asgd", "silent", "sync"):
         raise ValueError(f"unknown algo {algo!r}")
     if pipelined:
+        if pack_spec is None:
+            raise ValueError("pipelined=True requires pack_spec (the "
+                             "packed-resident layout)")
         if algo != "asgd":
             raise ValueError(
                 f"pipelined=True requires algo='asgd' (got {algo!r}): the "
-                "pipeline overlaps the gossip exchange — silent has no "
-                "exchange to overlap")
+                "pipeline overlaps the gossip exchange — sync/silent have "
+                "no exchange to overlap")
         if gcfg.gossip_every > 1:
             raise ValueError(
                 "pipelined=True requires gossip_every == 1 (use "
@@ -82,13 +98,36 @@ def make_train_step(cfg: ModelConfig, *, pack_spec, algo="asgd",
         raise ValueError(
             "lr_schedule= is only wired into the pipelined engine")
 
-    def direction(packed, pgrads, opt_state):
-        """(dw, new_opt_state): w - eps*dw is the inner-optimizer step."""
+    def direction(params, grads, opt_state):
+        """(dw, new_opt_state): w - eps*dw is the inner-optimizer step
+        (params and grads: a tree or the packed tensor)."""
         if inner == "sgd":
-            return pgrads, opt_state
+            return grads, opt_state
         update = momentum_update if inner == "momentum" else adam_update
-        new_p, new_s = update(packed, pgrads, opt_state, acfg.eps)
-        return (packed - new_p) / acfg.eps, new_s
+        new_p, new_s = update(params, grads, opt_state, acfg.eps)
+        return tree_map(lambda w, n: (w - n) / acfg.eps, params,
+                        new_p), new_s
+
+    def baseline(params, dw):
+        """The non-gossip algos' update: sync or silent."""
+        if algo == "sync":
+            return sync_dp_apply(params, dw, acfg.eps)
+        return local_sgd_apply(params, dw, acfg.eps)
+
+    def pytree_step(params, gossip, opt_state, batch, shift_idx, block_idx):
+        loss, grads = tree_loss_and_grad(cfg, params, batch)
+        with torch.no_grad():
+            dw, opt_state = direction(params, grads, opt_state)
+            metrics = {"loss": loss.mean()}
+            if algo != "asgd":
+                return baseline(params, dw), gossip, opt_state, metrics
+            new_params, new_gossip, gm = asgd_gossip_apply(
+                params, dw, gossip, shift_idx, block_idx, gcfg, acfg)
+        metrics.update(gm)
+        return new_params, new_gossip, opt_state, metrics
+
+    if pack_spec is None:
+        return pytree_step
 
     def step(packed, gossip, opt_state, batch, shift_idx, block_idx):
         lr = None if lr_schedule is None else lr_schedule(gossip.step)
@@ -100,8 +139,8 @@ def make_train_step(cfg: ModelConfig, *, pack_spec, algo="asgd",
         with torch.no_grad():
             dw, opt_state = direction(packed, pgrads, opt_state)
             metrics = {"loss": loss.mean()}
-            if algo == "silent":
-                return packed - acfg.eps * dw, gossip, opt_state, metrics
+            if algo != "asgd":
+                return baseline(packed, dw), gossip, opt_state, metrics
             if pipelined:
                 if acfg.silent:
                     new_packed, new_gossip, gm = _silent_round(

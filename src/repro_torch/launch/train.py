@@ -1,17 +1,21 @@
-"""CLI trainer: ASGD gossip training on the packed-resident engines.
+"""CLI trainer: ASGD gossip training of W worker replicas on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --workers 4 --pipelined --wire-format int8 --steps 6
 
-runs full smollm-135m on the GPU: W worker replicas in one packed
-(W, R, LANE) ensemble, the gossip blend through the CUDA kernels.  Add
-``--device cpu`` (and ``--reduced`` for the smoke-scale arch) to run on the
-CPU through the kernels' plain versions.
+runs full smollm-135m on the GPU.  The engine follows the reference
+trainer's flags: --pipelined or --packed-resident keep the packed
+(W, R, LANE) ensemble as the state (blend kernels B1r/B1a); without them
+the pytree engine carries a tree of (W, ...) leaves (its blend is plain
+torch, since the CLI builds ``ASGDConfig(eps, elastic)`` with use_fused
+off, as the reference CLI does).  --algo silent and --algo sync replace
+the gossip round on the pytree and packed engines.  Add ``--device cpu``
+(and ``--reduced`` for the smoke-scale arch) to run on the CPU through the
+kernels' plain versions.
 
-Flags follow the reference trainer.  Not ported yet, and raising with the
-ROADMAP.md item that carries them: the pytree engine (neither
---packed-resident nor --pipelined), --algo sync, --elastic, --save and
---restore.
+Not ported yet, and raising with the ROADMAP.md item that carries them:
+--elastic (per-peer liveness, item 4), --save and --restore (checkpoints,
+item 5).
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from .. import resolve_device, set_full_fp32_precision
 from ..configs.registry import get_arch
 from ..core.asgd import ASGDConfig
 from ..core.gossip import (GossipConfig, draw_gossip_indices, final_average,
-                           init_packed_gossip_state,
+                           init_gossip_state, init_packed_gossip_state,
                            init_pipelined_gossip_state, leaf_groups)
 from ..core.packing import pack_spec_w, pack_w, unpack_w
 from ..core.tree import tree_map
@@ -37,6 +41,58 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to the PyTorch package yet — ROADMAP.md "
         f"queue A, {item}")
+
+
+def gossip_config(workers: int, partial_blocks: int = 4, delay: int = 1,
+                  wire_format: str = "none") -> GossipConfig:
+    """The trainer's GossipConfig: ring shifts below W, and the
+    --wire-format choice ("none", "int8", "bf16", "f16")."""
+    wf, payload_dtype = {
+        "none": (None, None),
+        "int8": ("int8", None),
+        "bf16": ("dtype", torch.bfloat16),
+        "f16": ("dtype", torch.float16),
+    }[wire_format]
+    return GossipConfig(
+        shifts=tuple(s for s in (1, 2, 4, 8) if s < max(workers, 2)),
+        partial_blocks=partial_blocks, delay=delay, wire_format=wf,
+        payload_dtype=payload_dtype)
+
+
+def batch_iterators(cfg, workers: int, batch: int, seq: int, seed: int):
+    """One synthetic token stream per worker, seeded as the reference's."""
+    return [lm_batch_iterator(
+        seed * 1000 + w, batch, seq, cfg.vocab, frontend=cfg.frontend,
+        d_model=cfg.d_model, encoder_seq=cfg.encoder_seq,
+        prefix_len=cfg.prefix_len) for w in range(workers)]
+
+
+def run_steps(step_fn, state: dict, its, draws: torch.Generator, gcfg,
+              steps: int, device, log_every: int = 10):
+    """The training loop shared by every engine: per step, one batch per
+    worker, this round's (shift_idx, block_idx) host draws, one step.
+    ``state`` holds "params", "gossip" and "opt" and is updated in place.
+    Returns {"losses", "step_seconds", "n_good"}."""
+    losses, step_seconds, n_good = [], [], []
+    t0 = time.perf_counter()
+    for step in range(steps):
+        t_step = time.perf_counter()
+        tokens = torch.stack([torch.from_numpy(next(it)["tokens"])
+                              for it in its]).to(device)
+        shift_idx, block_idx = draw_gossip_indices(draws, gcfg)
+        state["params"], state["gossip"], state["opt"], metrics = step_fn(
+            state["params"], state["gossip"], state["opt"],
+            {"tokens": tokens}, shift_idx, block_idx)
+        losses.append(float(metrics["loss"]))      # waits for the step
+        step_seconds.append(time.perf_counter() - t_step)
+        if "n_good" in metrics:
+            n_good.append(float(metrics["n_good"]))
+        if step % log_every == 0 or step == steps - 1:
+            extra = f" good_msgs={n_good[-1]:.0f}" if n_good else ""
+            print(f"step {step:5d} loss {losses[-1]:.4f}"
+                  f" ({time.perf_counter() - t0:.1f}s){extra}", flush=True)
+    return {"losses": losses, "step_seconds": step_seconds,
+            "n_good": n_good}
 
 
 def main(argv=None):
@@ -81,12 +137,6 @@ def main(argv=None):
 
     if args.pipelined:
         args.packed_resident = True
-    if not args.packed_resident:
-        _not_ported("the pytree gossip engine (no --packed-resident / "
-                    "--pipelined), which --algo silent uses there too",
-                    "item 6")
-    if args.algo == "sync":
-        _not_ported("--algo sync", "item 6")
     if args.elastic:
         _not_ported("--elastic (per-peer liveness)", "item 4")
     if args.save or args.restore:
@@ -103,16 +153,8 @@ def main(argv=None):
 
     params = M.init_model(cfg, args.seed, device=device)
     wparams = tree_map(lambda x: x.expand((W,) + tuple(x.shape)), params)
-    wire_format, payload_dtype = {
-        "none": (None, None),
-        "int8": ("int8", None),
-        "bf16": ("dtype", torch.bfloat16),
-        "f16": ("dtype", torch.float16),
-    }[args.wire_format]
-    gcfg = GossipConfig(
-        shifts=tuple(s for s in (1, 2, 4, 8) if s < max(W, 2)),
-        partial_blocks=args.partial_blocks, delay=args.delay,
-        wire_format=wire_format, payload_dtype=payload_dtype)
+    gcfg = gossip_config(W, args.partial_blocks, args.delay,
+                         args.wire_format)
     acfg = ASGDConfig(eps=args.eps, elastic=args.elastic_blend)
     schedule = None
     if args.lr_schedule != "none":
@@ -120,55 +162,43 @@ def main(argv=None):
         schedule = _mk_sched(args.lr_schedule, args.eps,
                              warmup=args.warmup, total=args.steps)
 
-    # pack ONCE at init; the ensemble stays packed until the final average
-    spec = pack_spec_w(wparams, block_rows=gcfg.fused_block_rows,
-                       groups=leaf_groups(wparams, gcfg.partial_blocks),
-                       n_groups=gcfg.partial_blocks)
-    packed = pack_w(wparams, spec)
+    spec = None
+    if args.packed_resident:
+        # pack ONCE at init; the ensemble stays packed until the final
+        # average
+        spec = pack_spec_w(wparams, block_rows=gcfg.fused_block_rows,
+                           groups=leaf_groups(wparams, gcfg.partial_blocks),
+                           n_groups=gcfg.partial_blocks)
+        packed = pack_w(wparams, spec)
+        wire_br = spec.block_rows if gcfg.wire_format == "int8" else None
+        init_state = (init_pipelined_gossip_state if args.pipelined
+                      else init_packed_gossip_state)
+        state = {"params": packed,
+                 "gossip": init_state(packed, gcfg, block_rows=wire_br),
+                 "opt": init_inner_state(packed, args.inner)}
+    else:
+        wparams = tree_map(torch.Tensor.contiguous, wparams)
+        state = {"params": wparams,
+                 "gossip": init_gossip_state(wparams, gcfg),
+                 "opt": init_inner_state(wparams, args.inner)}
     del params, wparams
-    wire_br = spec.block_rows if wire_format == "int8" else None
-    init_state = (init_pipelined_gossip_state if args.pipelined
-                  else init_packed_gossip_state)
-    state = {"params": packed, "gossip": init_state(packed, gcfg,
-                                                    block_rows=wire_br),
-             "opt": init_inner_state(packed, args.inner)}
 
     step_fn = make_train_step(
         cfg, pack_spec=spec, algo=args.algo, inner=args.inner, gcfg=gcfg,
         acfg=acfg, pipelined=args.pipelined, lr_schedule=schedule)
-    its = [lm_batch_iterator(
-        args.seed * 1000 + w, args.batch, args.seq, cfg.vocab,
-        frontend=cfg.frontend, d_model=cfg.d_model,
-        encoder_seq=cfg.encoder_seq, prefix_len=cfg.prefix_len)
-        for w in range(W)]
-    draws = torch.Generator().manual_seed(args.seed)
+    out = run_steps(step_fn, state,
+                    batch_iterators(cfg, W, args.batch, args.seq, args.seed),
+                    torch.Generator().manual_seed(args.seed), gcfg,
+                    args.steps, device, args.log_every)
 
-    losses, step_seconds, n_good = [], [], []
-    t0 = time.perf_counter()
-    for step in range(args.steps):
-        t_step = time.perf_counter()
-        tokens = torch.stack([torch.from_numpy(next(it)["tokens"])
-                              for it in its]).to(device)
-        shift_idx, block_idx = draw_gossip_indices(draws, gcfg)
-        state["params"], state["gossip"], state["opt"], metrics = step_fn(
-            state["params"], state["gossip"], state["opt"],
-            {"tokens": tokens}, shift_idx, block_idx)
-        losses.append(float(metrics["loss"]))      # waits for the step
-        step_seconds.append(time.perf_counter() - t_step)
-        if "n_good" in metrics:
-            n_good.append(float(metrics["n_good"]))
-        if step % args.log_every == 0 or step == args.steps - 1:
-            extra = f" good_msgs={n_good[-1]:.0f}" if n_good else ""
-            print(f"step {step:5d} loss {losses[-1]:.4f}"
-                  f" ({time.perf_counter() - t0:.1f}s){extra}", flush=True)
-
-    # final aggregate (paper §4.3) — the run's one unpack boundary
-    avg = final_average(unpack_w(state["params"], spec))
-    if losses:
-        print(f"final: last-loss={losses[-1]:.4f} "
-              f"(start {losses[0]:.4f})", flush=True)
-    return {"losses": losses, "step_seconds": step_seconds,
-            "n_good": n_good, "params": avg}
+    # final aggregate (paper §4.3) — for the packed engines the run's one
+    # unpack boundary
+    final = (unpack_w(state["params"], spec) if spec is not None
+             else state["params"])
+    if out["losses"]:
+        print(f"final: last-loss={out['losses'][-1]:.4f} "
+              f"(start {out['losses'][0]:.4f})", flush=True)
+    return {**out, "params": final_average(final)}
 
 
 if __name__ == "__main__":

@@ -255,10 +255,16 @@ def test_asgd_update_matches_reference(elastic):
     for a, b in zip(jax.tree.leaves(jw), flatten_sorted(tw)[0]):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError, match="B3"):
-        tasgd.asgd_update(tree_map(torch.from_numpy, w),
-                          tree_map(torch.from_numpy, dw), [],
-                          tasgd.ASGDConfig(use_fused=True))
+    # use_fused: the same update through B3 (its plain version here);
+    # sums in another order, so atol 1e-5
+    fw, fn = tasgd.asgd_update(
+        tree_map(torch.from_numpy, w), tree_map(torch.from_numpy, dw),
+        [tree_map(torch.from_numpy, e) for e in exts],
+        tasgd.ASGDConfig(use_fused=True, **ak))
+    assert float(fn) == float(jn)
+    for a, b in zip(jax.tree.leaves(jw), flatten_sorted(fw)[0]):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-5)
 
 
 def test_final_average_and_leaf_groups():

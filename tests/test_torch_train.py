@@ -117,8 +117,8 @@ def test_cli_requires_cuda_unless_cpu_is_asked():
 
 
 @pytest.mark.parametrize("flags,match", [
-    ([], "pytree"),
-    (["--pipelined", "--algo", "sync"], "sync"),
+    (["--elastic"], "elastic"),
+    (["--save", "x.msgpack"], "save"),
     (["--pipelined", "--elastic"], "elastic"),
     (["--pipelined", "--save", "x.msgpack"], "save"),
     (["--pipelined", "--restore", "x.msgpack"], "restore"),
@@ -127,6 +127,12 @@ def test_cli_options_not_ported_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         ttrain.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu",
                      "--steps", "1", *flags])
+
+
+def test_cli_pipelined_sync_is_refused():
+    with pytest.raises(ValueError, match="pipelined=True requires algo"):
+        ttrain.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu",
+                     "--steps", "1", "--pipelined", "--algo", "sync"])
 
 
 def test_silent_packed_step_is_local_sgd():
@@ -147,8 +153,12 @@ def test_silent_packed_step_is_local_sgd():
     state = tg.init_packed_gossip_state(packed, gcfg)
     new, state2, _, m = step(packed, state, 0, {"tokens": tokens}, 0, 0)
     assert torch.equal(new, packed - 0.05 * g) and state2 is state
-    with pytest.raises(NotImplementedError, match="sync"):
-        make_train_step(cfg, pack_spec=spec, algo="sync")
+    # sync on the packed engine: every worker steps with the worker mean
+    sync = make_train_step(cfg, pack_spec=spec, algo="sync", gcfg=gcfg,
+                           acfg=tasgd.ASGDConfig(eps=0.05))
+    new, state2, _, m = sync(packed, state, 0, {"tokens": tokens}, 0, 0)
+    assert torch.equal(new, packed - 0.05 * g.mean(dim=0, keepdim=True))
+    assert state2 is state and "n_good" not in m
 
 
 def test_optimizers_and_lr_schedule_match_reference():
