@@ -28,7 +28,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      --algo silent step through train.main;
   7. [fused-update] asgd_update(use_fused=True) on one full smollm-135m
      replica at P=1 and P=4 against use_fused=False, counters zeroed
-     before and read after — B3r/B3a launched.
+     before and read after — B3r/B3a launched;
+  8. [kernels] B4 (kmeans_assign) at the BATCH shape (M=10^8, K=D=10),
+     the round shape (W=64, b=500) and the TPU kernel's envelope (M=2^20,
+     K=1024, D=128): idx equal off near-ties, counts exact, sums within
+     rtol 1e-5 of f64, bitwise repeatable; its counts at M=2^25+3; B6r/B6a
+     on one flattened smollm-135m replica, gate open and shut;
+  9. [parzen] the B6 entry point parzen_blend on that replica against the
+     plain oracle, counters zeroed before and read after;
+ 10. [kmeans-check] the round simulator (use_fused False and True) and
+     BATCH on a small input, GPU against CPU from the same draws;
+ 11. [kmeans] the paper's K-Means workload at full size: 10^8 samples
+     (k=d=10) made on the card, simulate_rounds W=64 b=500 for 200 rounds
+     (ASGD, silent) and 10 BATCH iterations, counters zeroed before and
+     read after — B4 twice a round; its profile over 10 rounds.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and last the device JSON line.  Without a GPU, or without the repo's
 sources beside it, it exits non-zero and prints no result.
@@ -462,7 +475,7 @@ def phase_breakdown(torch, device):
                                                 1))
 
 
-def profile_step(torch, tag, run):
+def profile_step(torch, tag, run, what="one step"):
     """Wall time, device busy time and idle share of one call of ``run``
     (after a warm-up call), and the top device kernels, from a
     torch.profiler trace."""
@@ -490,7 +503,7 @@ def profile_step(torch, tag, run):
                 (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     if spans:
-        log(f"[{tag}] one step: wall {wall_us / 1e3:.3f} ms, device busy "
+        log(f"[{tag}] {what}: wall {wall_us / 1e3:.3f} ms, device busy "
             f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.1%}, "
             f"{len(spans)} device ops")
         for name, us in top:
@@ -722,6 +735,339 @@ def phase_fused_update(torch, device):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the K-Means slice: B4 (kmeans_assign) and B6 (parzen_blend)
+# ---------------------------------------------------------------------------
+
+KM_K, KM_D, KM_M = 10, 10, 10**8     # paper's headline dims; 10^8 samples
+KM_W, KM_B, KM_EPS = 64, 500, 0.1    # kmeans_scaling's largest W; Fig. 11 b
+KM_ROUNDS, KM_BATCH_ITERS = 200, 10
+TOL_SUMS_RTOL = 1e-5                 # B4 sums vs an f64 sum, relative to
+#                                      the f64 sum of |x| (cancellation-free)
+TIE_RTOL = 1e-5                      # B4 idx compared where the top-2 f64
+#                                      margin exceeds 1e-5 (|best| + 1)
+COUNT_M = 2**25 + 3                  # B4 counts above 2^24
+
+
+def b4_check(torch, name, x, w, out, out_p, repeat):
+    """B4 against its plain version: idx equal wherever the two best f64
+    scores do not nearly tie (near-tie flips are counted, not failed);
+    counts exactly the kernel idx's integer counts (and the plain
+    version's when no idx differs); sums within TOL_SUMS_RTOL of an f64
+    sum over the kernel's idx; three launches bitwise equal.  Returns
+    (max abs err of sums vs f64, near-tie flips, near ties)."""
+    idx, sums, counts = out
+    idx_p, _, counts_p = out_p
+    wn, k, d = w.shape
+    xd, wd = x.double(), w.double()
+    scores = (-2.0 * torch.matmul(xd, wd.transpose(1, 2))
+              + (wd * wd).sum(-1)[:, None, :])
+    if k > 1:
+        top = torch.topk(scores, 2, dim=-1, largest=False).values
+        off_tie = (top[..., 1] - top[..., 0]) > TIE_RTOL * (
+            top[..., 0].abs() + 1.0)
+        del top
+    else:
+        off_tie = torch.ones(idx.shape, dtype=torch.bool, device=x.device)
+    del scores
+    differ = idx != idx_p
+    bad = int((differ & off_tie).sum())
+    flips, near = int(differ.sum()), int((~off_tie).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} idx differ off a tie")
+    flat = (idx.long() + torch.arange(wn, device=x.device)[:, None] * k
+            ).reshape(-1)
+    exact = torch.bincount(flat, minlength=wn * k).reshape(wn, k)
+    if not torch.equal(counts, exact.float()) or \
+            (flips == 0 and not torch.equal(counts, counts_p)):
+        raise AssertionError(f"{name}: counts differ")
+    xs = xd.expand(wn, -1, -1).reshape(-1, d)
+    s64 = torch.zeros((wn * k, d), dtype=torch.float64, device=x.device)
+    a64 = torch.zeros_like(s64)
+    s64.index_add_(0, flat, xs)
+    a64.index_add_(0, flat, xs.abs())
+    del xs, xd
+    err = (sums.double().reshape(wn * k, d) - s64).abs()
+    if not bool((err <= TOL_SUMS_RTOL * a64).all()):
+        raise AssertionError(f"{name}: sums off the f64 sum by "
+                             f"{float((err / a64.clamp_min(1e-300)).max()):.3e}"
+                             f" of sum|x| > {TOL_SUMS_RTOL}")
+    for _ in range(2):
+        again = repeat()
+        if not all(torch.equal(a, b) for a, b in zip(again, out)):
+            raise AssertionError(f"{name}: not reproducible")
+    return float(err.max()), flips, near
+
+
+def phase_kmeans_kernels(torch, device):
+    """B4 at its three shapes (BATCH, round, envelope) and at M = 2^25 + 3,
+    K = 1 (count exactness); B6r/B6a on one flattened smollm-135m replica
+    with the gate open and shut — each against its plain version."""
+    from repro_torch.kernels.kmeans_assign.kernel import kmeans_assign_w
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_plain
+    from repro_torch.kernels.parzen_blend.kernel import (parzen_apply,
+                                                         parzen_reduce)
+    from repro_torch.kernels.parzen_blend.ref import (parzen_apply_plain,
+                                                      parzen_reduce_plain)
+    from repro_torch.core.parzen import gate_from_terms
+
+    results = {}
+    g = torch.Generator(device=device).manual_seed(3)
+    shapes = (("batch", None, KM_M, KM_K, KM_D),    # run_batch's E/M step
+              ("round", KM_W, KM_B, KM_K, KM_D),    # one round's W gradients
+              ("envelope", None, 2**20, 1024, 128))  # the TPU's VMEM note
+    for case, wn, m, k, d in shapes:
+        x = torch.randn(((wn,) if wn else ()) + (m, d), generator=g,
+                        device=device)
+        w = torch.randn((wn or 1, k, d), generator=g, device=device)
+        run = lambda: kmeans_assign_w(x, w)                  # noqa: E731
+        plain = lambda: kmeans_assign_plain(x, w)            # noqa: E731
+        out, out_p = run(), plain()
+        torch.cuda.synchronize()
+        err, flips, near = b4_check(torch, f"B4/{case}", x, w, out, out_p,
+                                    run)
+        del out_p
+        nw = wn or 1
+        time_pass(torch, results, ("B4", case),
+                  f"B4 {case:8s} W={nw} M={m} K={k} D={d}", run, plain, err,
+                  x.numel() * 4 + nw * m * 4 + w.numel() * 4
+                  + nw * k * (d + 1) * 4, 2 * nw * m * k * d,
+                  f" (idx flips {flips} among {near} near ties, sums within "
+                  f"{TOL_SUMS_RTOL} of f64, bitwise repeatable)")
+        del x, w, out
+        torch.cuda.empty_cache()
+    x = torch.randn((COUNT_M, 4), generator=g, device=device)
+    counts = kmeans_assign_w(x, torch.zeros((1, 1, 4), device=device))[2]
+    torch.cuda.synchronize()
+    if float(counts[0]) != float(torch.tensor(COUNT_M, dtype=torch.float32)):
+        raise AssertionError(f"B4 counts: {float(counts[0])} for M={COUNT_M}")
+    log(f"[kernels] B4 counts at M={COUNT_M}, K=1: {float(counts[0]):.1f} "
+        f"== float32(M) (an f32 sum of ones would stop at 16777216)")
+    del x
+    torch.cuda.empty_cache()
+
+    _, _, rows = pytree_shapes(torch, device)
+    w = 0.05 * torch.randn((rows, 512), generator=g, device=device)
+    dw = 0.01 * torch.randn((rows, 512), generator=g, device=device)
+    noise = 0.02 * torch.randn((rows, 512), generator=g, device=device)
+    n = rows * 512
+    for case, side in (("open", 0.5), ("shut", -0.5)):
+        ext = w - side * dw + noise
+        red = lambda: parzen_reduce(w, ext, dw)             # noqa: E731
+        red_plain = lambda: parzen_reduce_plain(w, ext, dw)  # noqa: E731
+        acc, acc_p = red(), red_plain()
+        torch.cuda.synchronize()
+        err_r, rel = check_reduce(torch, f"B6r/{case}", acc, acc_p, red)
+        gate = gate_from_terms(acc_p[0], acc_p[1], acc_p[2], EPS)
+        if float(gate) != (1.0 if case == "open" else 0.0):
+            raise AssertionError(f"B6: gate {float(gate)} not {case}")
+        app = lambda: parzen_apply(w, ext, dw, gate, eps=EPS)  # noqa: E731
+        app_plain = lambda: parzen_apply_plain(  # noqa: E731
+            w, ext, dw, gate, eps=EPS)
+        out, out_p = app(), app_plain()
+        torch.cuda.synchronize()
+        err_a = check_apply(torch, f"B6a/{case}", out, out_p)
+        del out, out_p
+        where = f"one replica R={rows}, gate {case}"
+        time_pass(torch, results, ("B6r", case), f"B6r {where}", red,
+                  red_plain, err_r, n * 12 + 12, n * 6,
+                  f" (max rel {rel:.3e}, bitwise repeatable)")
+        time_pass(torch, results, ("B6a", case), f"B6a {where}", app,
+                  app_plain, err_a, n * 16 + 4, n * 6)
+        del ext, acc, acc_p
+    del w, dw, noise
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_parzen_blend(torch, device):
+    """The B6 entry point ``parzen_blend`` on one flattened smollm-135m
+    replica (N = 134,515,008), an external ahead of the step (gate open)
+    and one behind (shut), counters zeroed before and read after; each
+    against the reference's oracle ported (``parzen_blend_ref``): gate
+    equal, state within atol 1e-6.  Returns the launch counts."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.parzen_blend import parzen_blend
+    from repro_torch.kernels.parzen_blend.ref import parzen_blend_ref
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import init_model
+    from repro_torch.core.tree import flatten_sorted
+
+    leaves = flatten_sorted(init_model(get_arch("smollm-135m"), 0,
+                                       device=device))[0]
+    w = torch.cat([x.reshape(-1) for x in leaves])
+    del leaves
+    g = torch.Generator(device=device).manual_seed(4)
+    dw = 0.01 * torch.randn(w.shape, generator=g, device=device)
+    counts = {}
+    for want, side in ((1.0, 0.5), (0.0, -0.5)):
+        ext = w - side * dw + 0.02 * torch.randn(w.shape, generator=g,
+                                                 device=device)
+        K.reset_launch_counts()
+        out, gate = parzen_blend(w, ext, dw, EPS)
+        torch.cuda.synchronize()
+        for name, c in K.launch_counts().items():
+            counts[name] = counts.get(name, 0) + c
+        ref, gate_r = parzen_blend_ref(w, ext, dw, EPS)
+        err = float((out - ref).abs().max())
+        if float(gate) != float(gate_r) or float(gate) != want or \
+                not err <= TOL_APPLY_ATOL:
+            raise AssertionError(f"parzen_blend: gate {float(gate)} vs ref "
+                                 f"{float(gate_r)} (want {want}), max abs "
+                                 f"diff {err:.3e}")
+        log(f"[parzen] parzen_blend on one smollm-135m replica, N="
+            f"{w.numel()}: gate {float(gate):.0f} == ref, max abs diff vs "
+            f"parzen_blend_ref {err:.3e}")
+        del ext, out, ref
+    for name in ("parzen_reduce", "parzen_apply"):
+        if counts.get(name, 0) != 2:
+            raise AssertionError(f"parzen_blend: {name} launched "
+                                 f"{counts.get(name, 0)} times: {counts}")
+    log(f"[parzen] launches {counts}")
+    del w, dw
+    torch.cuda.empty_cache()
+    return counts
+
+
+def km_setup(torch, device, k, d, m, workers, seed):
+    """(x, centers, w0, shards) from the port's generators on ``device``."""
+    from repro_torch.core import baselines as B
+    from repro_torch.core import kmeans as KM
+    g = torch.Generator(device=device).manual_seed(seed)
+    x, centers, labels = KM.synthetic_clusters(g, k, d, m, spread=0.12)
+    del labels
+    w0 = KM.init_prototypes(x, KM.choose_prototype_indices(g, m, k))
+    perm = B.draw_shard_permutation(g, m)
+    shards = B.shard_data(x, workers, perm)
+    del perm
+    return x, centers, w0, shards
+
+
+def phase_kmeans_check(torch, device):
+    """The round simulator and BATCH on a small input, on the GPU (B4, and
+    B2 with use_fused) and on the CPU (plain versions, which the CPU tests
+    hold to the JAX reference), from the same data and draws — the
+    reference test's setup: k=8, d=6, m=32000, W=8, b=64, eps 0.1, delay
+    1, 40 rounds, use_fused False and True; then 5 BATCH iterations.
+    Per-round errors within rel 1e-5, n_good equal and not all 0, final
+    states within atol 1e-5."""
+    from repro_torch.core import baselines as B
+    from repro_torch.core.asgd import ASGDConfig
+
+    x, _, w0, shards = km_setup(torch, "cpu", 8, 6, 32000, 8, 0)
+    for fused in (False, True):
+        cfg = B.RoundSimConfig(workers=8, rounds=40, delay=1,
+                               asgd=ASGDConfig(eps=0.1, batch=64,
+                                               use_fused=fused))
+        draws = B.draw_rounds(torch.Generator().manual_seed(1), cfg,
+                              shards.shape[1])
+        cpu = B.simulate_rounds(shards, w0, cfg, draws)
+        gd = B.RoundDraws(draws.batch_idx.to(device), draws.perm.to(device))
+        gpu = B.simulate_rounds(shards.to(device), w0.to(device), cfg, gd)
+        e_c, e_g = cpu["errors"], gpu["errors"].cpu()
+        rel = float(((e_g - e_c).abs() / e_c.abs()).max())
+        err = float((gpu["w"].cpu() - cpu["w"]).abs().max())
+        if rel > 1e-5 or err > 1e-5 or not torch.equal(
+                gpu["n_good"].cpu(), cpu["n_good"]):
+            raise AssertionError(f"kmeans check use_fused={fused}: errors "
+                                 f"rel {rel:.3e}, states {err:.3e}, n_good "
+                                 f"equal {torch.equal(gpu['n_good'].cpu(), cpu['n_good'])}")
+        check_admitted(f"kmeans check use_fused={fused}",
+                       gpu["n_good"].tolist())
+        log(f"[kmeans-check] simulate_rounds W=8 b=64 40 rounds use_fused="
+            f"{fused}: GPU vs CPU errors max rel {rel:.3e} (last "
+            f"{float(e_g[-1]):.6f}), states max abs {err:.3e}, mean n_good "
+            f"{float(gpu['n_good'].mean()):.4f} per worker-round")
+    w_c, e_c = B.run_batch(x, w0, 1.0, 5)
+    w_g, e_g = B.run_batch(x.to(device), w0.to(device), 1.0, 5)
+    rel = float(((e_g.cpu() - e_c).abs() / e_c.abs()).max())
+    err = float((w_g.cpu() - w_c).abs().max())
+    if rel > 1e-5 or err > 1e-5:
+        raise AssertionError(f"kmeans check BATCH: errors rel {rel:.3e}, "
+                             f"states {err:.3e}")
+    log(f"[kmeans-check] run_batch 5 iterations: GPU vs CPU errors max rel "
+        f"{rel:.3e}, states max abs {err:.3e}")
+
+
+def phase_kmeans(torch, device):
+    """The K-Means path at full size on the card: m = 10^8 samples (k = d =
+    10, spread 0.12) made on the card, sharded over W = 64 workers;
+    simulate_rounds for 200 rounds (b = 500, eps 0.1, delay 1), ASGD and
+    silent; 10 BATCH iterations (eps 1.0) over all 10^8 samples.  Counters
+    zeroed before and read after each.  Returns the ASGD run's counts."""
+    from repro_torch import kernels as K
+    from repro_torch.core import baselines as B
+    from repro_torch.core.asgd import ASGDConfig
+    from repro_torch.kernels.kmeans_assign.kernel import ASSIGN
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x, _, w0, shards = km_setup(torch, device, KM_K, KM_D, KM_M, KM_W, 0)
+    torch.cuda.synchronize()
+    log(f"[kmeans] data: m={KM_M} k={KM_K} d={KM_D} on the card, sharded "
+        f"{tuple(shards.shape)}, in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=device).manual_seed(1)
+    runs, counts = {}, {}
+    for mode in ("asgd", "silent"):
+        cfg = B.RoundSimConfig(workers=KM_W, rounds=KM_ROUNDS, delay=1,
+                               asgd=ASGDConfig(eps=KM_EPS, batch=KM_B,
+                                               silent=mode == "silent"))
+        draws = B.draw_rounds(gen, cfg, shards.shape[1])
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = B.simulate_rounds(shards, w0, cfg, draws)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = K.launch_counts()
+        if mode == "asgd":
+            counts = c
+        errs = out["errors"].cpu()
+        # 2 a round (gradients, errors) + 2 for the final w_first/w_mean
+        per_round = (c.get(ASSIGN, 0) - 2) / KM_ROUNDS
+        if not bool(torch.isfinite(errs).all()) or not errs[-1] < errs[0] \
+                or per_round != 2:
+            raise AssertionError(f"kmeans {mode}: errors {errs[[0, -1]]}, "
+                                 f"launches {c}")
+        runs[mode] = out
+        log(f"[kmeans] simulate_rounds {mode}: {KM_ROUNDS} rounds W={KM_W} "
+            f"b={KM_B}: {secs / KM_ROUNDS * 1e3:.4f} ms per round (host "
+            f"clock, one sync), {KM_W * KM_B * KM_ROUNDS / secs:.4e} "
+            f"samples/s; {ASSIGN} {per_round:.2f} launches per round + 2 "
+            f"final ({c}); error {float(errs[0]):.6f} -> "
+            f"{float(errs[-1]):.6f}, w_first {float(out['w_first_error']):.6f}"
+            f", w_mean {float(out['w_mean_error']):.6f}, mean n_good "
+            f"{float(out['n_good'].mean()):.4f}")
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, errs_b = B.run_batch(x, w0, 1.0, KM_BATCH_ITERS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = K.launch_counts()
+    errs_b = errs_b.cpu()
+    if not bool(torch.isfinite(errs_b).all()) or \
+            not errs_b[-1] < errs_b[0] or c.get(ASSIGN, 0) == 0:
+        raise AssertionError(f"kmeans BATCH: errors {errs_b}, launches {c}")
+    log(f"[kmeans] run_batch {KM_BATCH_ITERS} iterations over m={KM_M}: "
+        f"{secs / KM_BATCH_ITERS * 1e3:.3f} ms per iteration (host clock), "
+        f"{ASSIGN} {c.get(ASSIGN, 0) / KM_BATCH_ITERS:.2f} launches per "
+        f"iteration; error {float(errs_b[0]):.6f} -> {float(errs_b[-1]):.6f}")
+    log(f"[kmeans] final errors: ASGD {float(runs['asgd']['errors'][-1]):.6f}"
+        f", silent {float(runs['silent']['errors'][-1]):.6f}, BATCH "
+        f"{float(errs_b[-1]):.6f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    cfg10 = B.RoundSimConfig(workers=KM_W, rounds=10, delay=1,
+                             asgd=ASGDConfig(eps=KM_EPS, batch=KM_B))
+    draws10 = B.draw_rounds(gen, cfg10, shards.shape[1])
+    profile_step(torch, "kmeans-profile",
+                 lambda: B.simulate_rounds(shards, w0, cfg10, draws10),
+                 what="10 ASGD rounds")
+    del x, shards, runs
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script — "
@@ -737,6 +1083,10 @@ def main() -> int:
     from repro_torch import set_full_fp32_precision
     from repro_torch.kernels.gossip_blend.kernel import (
         APPLY, APPLY_1, APPLY_W, REDUCE, REDUCE_1, REDUCE_W, SOURCE)
+    from repro_torch.kernels.kmeans_assign.kernel import ASSIGN
+    from repro_torch.kernels.kmeans_assign.kernel import SOURCE as KM_SOURCE
+    from repro_torch.kernels.parzen_blend.kernel import APPLY as PZ_APPLY
+    from repro_torch.kernels.parzen_blend.kernel import REDUCE as PZ_REDUCE
 
     set_full_fp32_precision()
     device = torch.device("cuda")
@@ -757,22 +1107,31 @@ def main() -> int:
     phase_breakdown(torch, device)
     counts.update(phase_pytree(torch, device))
     counts.update(phase_fused_update(torch, device))
+    kres.update(phase_kmeans_kernels(torch, device))
+    counts.update(phase_parzen_blend(torch, device))
+    phase_kmeans_check(torch, device)
+    counts.update(phase_kmeans(torch, device))
 
     gb = "src/repro/kernels/gossip_blend/kernel.py"
+    km = "src/repro/kernels/kmeans_assign/kernel.py"
+    pz = "src/repro/kernels/parzen_blend/kernel.py"
     kernels = []
-    # (table name, kernel name, source, reference def line, timed case)
-    for tag, name, src, line, case in (
-            ("B1r", REDUCE, SOURCE, 370, "int8"),      # the main path's
-            ("B1a", APPLY, SOURCE, 412, "int8"),       # wire
-            ("B2r", REDUCE_W, SOURCE, 225, "f32"),
-            ("B2a", APPLY_W, SOURCE, 259, "f32"),
-            ("B3r", REDUCE_1, SOURCE, 115, 4),   # P=4
-            ("B3a", APPLY_1, SOURCE, 141, 4)):
+    # (table name, kernel name, source, reference file:line, timed case)
+    for tag, name, src, ref, case in (
+            ("B1r", REDUCE, SOURCE, f"{gb}:370", "int8"),  # the main
+            ("B1a", APPLY, SOURCE, f"{gb}:412", "int8"),   # path's wire
+            ("B2r", REDUCE_W, SOURCE, f"{gb}:225", "f32"),
+            ("B2a", APPLY_W, SOURCE, f"{gb}:259", "f32"),
+            ("B3r", REDUCE_1, SOURCE, f"{gb}:115", 4),     # P=4
+            ("B3a", APPLY_1, SOURCE, f"{gb}:141", 4),
+            ("B4", ASSIGN, KM_SOURCE, f"{km}:57", "batch"),
+            ("B6r", PZ_REDUCE, SOURCE, f"{pz}:65", "open"),
+            ("B6a", PZ_APPLY, SOURCE, f"{pz}:85", "open")):
         r = kres[(tag, case)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": str(src.relative_to(ROOT)),
-            "replaces": f"{gb}:{line}", "launches": counts[name],
+            "replaces": ref, "launches": counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})

@@ -6,6 +6,11 @@ Each kernel package mirrors the reference's Pallas package:
   <name>/ref.py     — the plain-torch version of the same function
   <name>/ops.py     — the public wrappers
 
+  gossip_blend   B1r/B1a, B2r/B2a, B3r/B3a (gossip_blend/csrc/gossip_blend.cu)
+  kmeans_assign  B4, the fused K-Means E/M step (its own source)
+  parzen_blend   B6r/B6a, the P=1 gate and blend: two entry points of the
+                 gossip-blend source, bound in parzen_blend/kernel.py
+
 Build: ``nvcc`` compiles each source into its own shared library under
 ``build/kernels/`` at the repo root (listed in .gitignore) the first time a
 wrapper meets a CUDA tensor, and ``ctypes`` loads it.  Nothing is compiled

@@ -1,19 +1,28 @@
 // Gossip blend (paper eqs. 4-6) for Hopper, sm_90a.
 //
-// Replaces six Pallas TPU kernels of src/repro/kernels/gossip_blend/kernel.py:
+// Replaces eight Pallas TPU kernels.  Six of src/repro/kernels/gossip_blend/
+// kernel.py:
 //   gossip_reduce_w_resident_pallas (:370) -> gossip_reduce_w_resident (B1r)
 //   gossip_apply_w_resident_pallas  (:412) -> gossip_apply_w_resident  (B1a)
 //   gossip_reduce_w_pallas          (:225) -> gossip_reduce_w          (B2r)
 //   gossip_apply_w_pallas           (:259) -> gossip_apply_w           (B2a)
 //   gossip_reduce_pallas            (:115) -> gossip_reduce            (B3r)
 //   gossip_apply_pallas             (:141) -> gossip_apply             (B3a)
-// The six entry points share one templated reduce body and one templated
+// and the P=1 pair of src/repro/kernels/parzen_blend/kernel.py:
+//   parzen_reduce_pallas            (:65)  -> parzen_reduce            (B6r)
+//   parzen_apply_pallas             (:85)  -> parzen_apply             (B6a)
+// The eight entry points share one templated reduce body and one templated
 // apply body.  Template flags: INT8, int8 externals with one scale per
 // block_rows row tile (B1's wire); MASK, a worker-shared (R, LANE) 0/1
 // partition mask (B2, the pytree engine's 'leaves' mode).  Every kernel
 // also takes a row range [r0, r1): outside it every reduce term is 0 and
 // the apply takes the plain step.  B1 passes its partition's rows; B2 and
-// B3 pass [0, R).  B3 is W = 1 without a mask.
+// B3 pass [0, R).  B3 is W = 1 without a mask.  B6 is B3 at P = 1 with two
+// differences, both flags: its accumulator is ordered [<dw, w - ext>,
+// ||dw||^2, ||ext||^2] (the finalize's parzen_order), and its apply blends
+// by the reference's formula w - eps * (gate * 0.5 * (w - ext) + dw), in
+// that order of operations (the PARZEN template flag), which rounds
+// otherwise than B3's w - (w + g * ext) / (g + 1).
 //
 // Layout: w, dw, out (W, R, LANE) f32; ext (W, P, R, LANE) f32, or int8
 // with scales (W, P, R / block_rows) f32; mask (R, LANE) f32.
@@ -192,10 +201,12 @@ reduce_partial_kernel(OPERAND_PARAMS, float* __restrict__ partials) {
 
 // Pass 1b: grid (W * P * 3).  acc[w, p, j] = sum over b of
 // partials[w, b, p, j], strided per thread then a shared-memory tree —
-// fixed order again.  nblk == 0 (an empty row range) gives zeros.
+// fixed order again.  nblk == 0 (an empty row range) gives zeros.  With
+// parzen_order (B6, P = 1) terms 1 and 2 trade places in acc.
 __global__ void __launch_bounds__(THREADS)
 reduce_finalize_kernel(const float* __restrict__ partials,
-                       float* __restrict__ acc, int P, int nblk) {
+                       float* __restrict__ acc, int P, int nblk,
+                       int parzen_order) {
   const int t = blockIdx.x;           // (w * P + p) * 3 + j
   const int j = t % 3;
   const int wp = t / 3;
@@ -211,7 +222,7 @@ reduce_finalize_kernel(const float* __restrict__ partials,
     if (threadIdx.x < half) s[threadIdx.x] += s[threadIdx.x + half];
     __syncthreads();
   }
-  if (threadIdx.x == 0) acc[t] = s[0];
+  if (threadIdx.x == 0) acc[parzen_order && j ? t - j + 3 - j : t] = s[0];
 }
 
 // Pass 2: grid (ceil(R / APPLY_ROWS) * W), worker fastest.  Where the
@@ -221,8 +232,10 @@ reduce_finalize_kernel(const float* __restrict__ partials,
 //   out  = (w - lr * dw) - alpha * att         (elastic variant)
 // elsewhere out = w - lr * dw (the plain SGD step; ext is not read).  lr is
 // read from device memory (B1: a schedule never rebuilds anything) or, when
-// lr_ptr is null, is the static lr_value (B2, B3: the TPU kernels' eps).
-template <bool INT8, bool MASK>
+// lr_ptr is null, is the static lr_value (B2, B3, B6: the TPU kernels' eps).
+// PARZEN (B6: P = 1, no mask, no row range, not elastic):
+//   att = (gate * 0.5) * (w - ext),  out = w - lr * (att + dw).
+template <bool INT8, bool MASK, bool PARZEN = false>
 __global__ void __launch_bounds__(THREADS)
 apply_kernel(OPERAND_PARAMS, const float* __restrict__ gates,
              const float* __restrict__ inv_denom,
@@ -236,7 +249,7 @@ apply_kernel(OPERAND_PARAMS, const float* __restrict__ gates,
   const long long state4 = op.R * LANE4;
   const int P = op.P;
   const float lr = lr_ptr ? *lr_ptr : lr_value;
-  const float inv = inv_denom[wi];
+  const float inv = PARZEN ? 0.f : inv_denom[wi];
   float g[MAX_P];
 #pragma unroll
   for (int p = 0; p < MAX_P; ++p)
@@ -257,7 +270,14 @@ apply_kernel(OPERAND_PARAMS, const float* __restrict__ gates,
       }
     }
     float4 o;
-    if (blend) {
+    if constexpr (PARZEN) {
+      const float4 ev = reinterpret_cast<const float4*>(ext)[s4];
+      const float gh = g[0] * 0.5f;
+      const float4 att = make_float4(gh * (wv.x - ev.x), gh * (wv.y - ev.y),
+                                     gh * (wv.z - ev.z), gh * (wv.w - ev.w));
+      o = make_float4(wv.x - lr * (att.x + dv.x), wv.y - lr * (att.y + dv.y),
+                      wv.z - lr * (att.z + dv.z), wv.w - lr * (att.w + dv.w));
+    } else if (blend) {
       float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int p = 0; p < MAX_P; ++p) {
@@ -319,7 +339,7 @@ int check(const Operands& o) {
 // nblk = ceil((r1 - r0) / gossip_reduce_rows_per_block()); acc: (W, P, 3).
 // scales non-null selects the int8 body, mask non-null the masked one.
 int launch_reduce(const Operands& o, float* partials, float* acc,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, int parzen_order = 0) {
   if (int rc = check(o)) return rc;
   const Shape& op = o.sh;
   const int nblk =
@@ -338,19 +358,23 @@ int launch_reduce(const Operands& o, float* partials, float* acc,
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   }
   reduce_finalize_kernel<<<op.W * op.P * 3, THREADS, 0, stream>>>(
-      partials, acc, op.P, nblk);
+      partials, acc, op.P, nblk, parzen_order);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_apply(const Operands& o, const float* gates,
                  const float* inv_denom, const float* lr_ptr, float lr_value,
-                 float* out, int elastic, float alpha, cudaStream_t stream) {
+                 float* out, int elastic, float alpha, cudaStream_t stream,
+                 bool parzen = false) {
   if (int rc = check(o)) return rc;
   const Shape& op = o.sh;
   const dim3 grid(
       static_cast<unsigned>((op.R + APPLY_ROWS - 1) / APPLY_ROWS) * op.W);
   auto* out4 = reinterpret_cast<float4*>(out);
-  if (o.scales)
+  if (parzen)
+    apply_kernel<false, false, true><<<grid, THREADS, 0, stream>>>(
+        OPERAND_ARGS(o), gates, inv_denom, lr_ptr, lr_value, out4, 0, 0.f);
+  else if (o.scales)
     apply_kernel<true, false><<<grid, THREADS, 0, stream>>>(
         OPERAND_ARGS(o), gates, inv_denom, lr_ptr, lr_value, out4, elastic,
         alpha);
@@ -439,6 +463,25 @@ int gossip_apply(const float* w, const float* dw, const float* ext,
                                1),
                       gates, inv_denom, nullptr, eps, out, elastic,
                       elastic_alpha, stream);
+}
+
+// B6r.  w, ext, dw (R, LANE); acc (3,) = [<dw, w - ext>, ||dw||^2,
+// ||ext||^2], the TPU kernel's order.
+int parzen_reduce(const float* w, const float* ext, const float* dw,
+                  float* partials, float* acc, long long R,
+                  cudaStream_t stream) {
+  return launch_reduce(operands(w, dw, ext, nullptr, nullptr, 1, 1, R, 0, R,
+                                1),
+                       partials, acc, stream, 1);
+}
+
+// B6a.  gate (1,) on the device; eps static.
+int parzen_apply(const float* w, const float* ext, const float* dw,
+                 const float* gate, float* out, long long R, float eps,
+                 cudaStream_t stream) {
+  return launch_apply(operands(w, dw, ext, nullptr, nullptr, 1, 1, R, 0, R,
+                               1),
+                      gate, gate, nullptr, eps, out, 0, 0.f, stream, true);
 }
 
 }  // extern "C"

@@ -8,7 +8,9 @@ Ports, from src/repro/kernels/gossip_blend/kernel.py:
   gossip_apply_w_pallas  (:259) -> :func:`gossip_apply_w`    (B2a)
   gossip_reduce_pallas   (:115) -> :func:`gossip_reduce`     (B3r)
   gossip_apply_pallas    (:141) -> :func:`gossip_apply`      (B3a)
-The source holds their byte bounds and design notes.
+The same library holds B6r/B6a (``parzen_reduce``/``parzen_apply``), bound
+in kernels/parzen_blend/kernel.py.  The source holds their byte bounds and
+design notes.
 
 On the TPU the row range arrives by scalar prefetch; here the engines draw
 the partition on the host, so ``row_range`` is two host ints passed to the
@@ -51,6 +53,8 @@ _ARGTYPES = {
     APPLY_W: [_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _F, _I, _F, _P],
     REDUCE_1: [_P, _P, _P, _P, _P, _I, _LL, _P],
     APPLY_1: [_P, _P, _P, _P, _P, _P, _I, _LL, _F, _I, _F, _P],
+    "parzen_reduce": [_P, _P, _P, _P, _P, _LL, _P],
+    "parzen_apply": [_P, _P, _P, _P, _P, _LL, _F, _P],
     "gossip_reduce_rows_per_block": [],
     "gossip_max_externals": [],
 }

@@ -40,3 +40,15 @@ def test_checker_sees_forbidden_imports(tmp_path):
     probe.write_text("def f():\n    from repro.core import gossip\n"
                      "    import jax.numpy as jnp\n")
     assert imported_roots(probe) >= {"repro", "jax"}
+
+
+@pytest.mark.parametrize("module", [
+    "core/kmeans.py", "core/baselines.py", "core/async_sim.py",
+    "examples/quickstart.py", "examples/kmeans_scaling.py",
+    "examples/cost_model.py", "kernels/kmeans_assign/kernel.py",
+    "kernels/kmeans_assign/ref.py", "kernels/kmeans_assign/ops.py",
+    "kernels/parzen_blend/kernel.py", "kernels/parzen_blend/ref.py",
+    "kernels/parzen_blend/ops.py"])
+def test_kmeans_slice_modules_are_checked(module):
+    """The K-Means slice's modules are among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES

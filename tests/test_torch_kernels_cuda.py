@@ -9,7 +9,10 @@ Tests marked ``cuda`` skip without a GPU.  Tolerances: the (W, P, 3) sums
 within rtol 1e-5 (the kernel and torch add in different orders); the
 apply pass within atol 1e-6 (the same elementwise operations in the same
 order — the kernels are built without fused multiply-add — save the sum
-over P externals, whose order torch picks).
+over P externals, whose order torch picks).  B4 (K-Means E/M): idx equal
+wherever the two best scores do not nearly tie (top-2 f64 margin above
+1e-5 (|best| + 1)); counts exactly; sums within 1e-5 of an f64 sum
+relative to the f64 sum of |x|.
 """
 import pathlib
 
@@ -30,6 +33,15 @@ from repro_torch.kernels.gossip_blend.ref import (
     gossip_apply_plain, gossip_apply_w_plain, gossip_apply_w_resident_plain,
     gossip_reduce_plain, gossip_reduce_w_plain,
     gossip_reduce_w_resident_plain)
+from repro_torch.kernels.kmeans_assign.kernel import SOURCE as KM_SOURCE
+from repro_torch.kernels.kmeans_assign.kernel import kmeans_assign_w
+from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_plain
+from repro_torch.kernels.parzen_blend import parzen_blend
+from repro_torch.kernels.parzen_blend.kernel import (parzen_apply,
+                                                     parzen_reduce)
+from repro_torch.kernels.parzen_blend.ref import (parzen_apply_plain,
+                                                  parzen_blend_ref,
+                                                  parzen_reduce_plain)
 
 W, R, LANE, BR = 4, 2624, 512, 64
 EPS, LR, ALPHA = 0.05, 0.07, 0.3
@@ -81,12 +93,25 @@ def test_batched_source_builds_apart_and_names_what_it_replaces():
     assert blend == [SOURCE]
     text = pathlib.Path(SOURCE).read_text()
     for name in ("gossip_reduce_w_pallas", "gossip_apply_w_pallas",
-                 "gossip_reduce_pallas", "gossip_apply_pallas", "Bound:"):
+                 "gossip_reduce_pallas", "gossip_apply_pallas",
+                 "parzen_reduce_pallas", "parzen_apply_pallas", "Bound:"):
         assert name in text
     for entry in ("gossip_reduce_w_resident(", "gossip_apply_w_resident(",
                   "gossip_reduce_w(", "gossip_apply_w(", "gossip_reduce(",
-                  "gossip_apply("):
+                  "gossip_apply(", "parzen_reduce(", "parzen_apply("):
         assert f"int {entry}" in text
+
+
+def test_kmeans_source_builds_apart_and_names_what_it_replaces():
+    """B4 has its own source and library; B6 builds from the gossip-blend
+    source (its two entry points above)."""
+    assert KM_SOURCE in K.kernel_sources()
+    assert set(K.kernel_sources()) == {SOURCE, KM_SOURCE}
+    assert K.library_path(KM_SOURCE).name.startswith("kmeans_assign-")
+    text = pathlib.Path(KM_SOURCE).read_text()
+    for name in ("kmeans_assign_pallas", "Bound:", "int kmeans_assign(",
+                 "int kmeans_assign_plan("):
+        assert name in text
 
 
 @pytest.mark.cuda
@@ -193,3 +218,121 @@ def test_cuda_batched_reduce_is_deterministic_and_bounds_p(cuda_device):
     big = ops["ext"][0, :1].expand(9, R, LANE).contiguous()
     with pytest.raises(ValueError, match="P=9 externals exceed"):
         gossip_reduce(ops["w"][0], ops["dw"][0], big)
+
+
+# ---------------------------------------------------------------------------
+# B4 (kmeans_assign) and B6 (parzen_blend)
+# ---------------------------------------------------------------------------
+
+def check_b4(x, w, out, out_p):
+    """B4 against its plain version (see the module docstring)."""
+    idx, sums, counts = out
+    wn, k, d = w.shape
+    xd, wd = x.double(), w.double()
+    scores = -2.0 * torch.matmul(xd, wd.transpose(1, 2)) + \
+        (wd * wd).sum(-1)[:, None, :]
+    if k > 1:
+        top = torch.topk(scores, 2, dim=-1, largest=False).values
+        off_tie = (top[..., 1] - top[..., 0]) > 1e-5 * (top[..., 0].abs() + 1)
+    else:
+        off_tie = torch.ones_like(idx, dtype=torch.bool)
+    assert not bool(((idx != out_p[0]) & off_tie).any())
+    flat = (idx.long() + torch.arange(wn, device=x.device)[:, None] * k) \
+        .reshape(-1)
+    exact = torch.bincount(flat, minlength=wn * k).reshape(wn, k).float()
+    torch.testing.assert_close(counts, exact, rtol=0, atol=0)
+    xs = xd.expand(wn, -1, -1).reshape(-1, d)
+    s64 = torch.zeros((wn * k, d), dtype=torch.float64, device=x.device)
+    a64 = torch.zeros_like(s64)
+    s64.index_add_(0, flat, xs)
+    a64.index_add_(0, flat, xs.abs())
+    assert bool(((sums.double().reshape(-1, d) - s64).abs()
+                 <= 1e-5 * a64).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wn,shared,m,k,d", [
+    (1, True, 1000, 10, 10), (1, True, 300, 3, 5), (1, True, 2048, 256, 64),
+    (1, True, 777, 1024, 128), (1, True, 500, 40, 200),
+    (8, False, 64, 8, 6), (6, True, 999, 7, 17), (64, False, 500, 10, 10)])
+def test_cuda_kmeans_assign_matches_plain(cuda_device, wn, shared, m, k, d):
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + d)
+    x = torch.randn(((m, d) if shared else (wn, m, d)), generator=g,
+                    device=cuda_device)
+    w = torch.randn((wn, k, d), generator=g, device=cuda_device)
+    K.reset_launch_counts()
+    out = kmeans_assign_w(x, w)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {"kmeans_assign": 1}
+    assert out[0].dtype == torch.int32 and tuple(out[0].shape) == (wn, m)
+    check_b4(x, w, out, kmeans_assign_plain(x, w))
+    if not shared:       # one worker's slice alone gives the same answer
+        one = kmeans_assign_w(x[wn - 1], w[wn - 1:])
+        assert torch.equal(one[0][0], out[0][wn - 1])
+        assert torch.equal(one[2][0], out[2][wn - 1])
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_assign_counts_are_exact_above_2_24(cuda_device):
+    m = 2**25 + 3
+    x = torch.randn((m, 2), device=cuda_device)
+    counts = kmeans_assign_w(x, torch.zeros((1, 1, 2),
+                                            device=cuda_device))[2]
+    assert float(counts[0]) == float(torch.tensor(m, dtype=torch.float32))
+    w = torch.tensor([[[0.0, 0.0], [1e3, 0.0]]], device=cuda_device)
+    counts = kmeans_assign_w(x[:2**24 + 1], w)[2]     # one cluster takes all
+    assert counts.tolist() == [[16777216.0, 0.0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,d", [(10**6, 10, 10), (2**16, 1024, 128)])
+def test_cuda_kmeans_assign_is_deterministic(cuda_device, m, k, d):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((m, d), generator=g, device=cuda_device)
+    w = torch.randn((1, k, d), generator=g, device=cuda_device)
+    runs = [kmeans_assign_w(x, w) for _ in range(3)]
+    for r in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(r, runs[0]))
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_assign_rejects_bad_operands(cuda_device):
+    x = torch.randn((100, 4), device=cuda_device)
+    w = torch.randn((1, 3, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        kmeans_assign_w(torch.randn((4, 100), device=cuda_device).T, w)
+    with pytest.raises(ValueError, match="several devices"):
+        kmeans_assign_w(x.cpu(), w)
+    with pytest.raises(ValueError, match="float32"):
+        kmeans_assign_w(x.half(), w)
+    with pytest.raises(ValueError, match="D=300 exceeds"):
+        kmeans_assign_w(torch.randn((10, 300), device=cuda_device),
+                        torch.randn((1, 2, 300), device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,gate", [(0.5, 1.0), (-0.5, 0.0)])
+def test_cuda_parzen_kernels_match_plain(cuda_device, side, gate):
+    ops = make_operands(1, "f32", 7, cuda_device)
+    w, dw = ops["w"][0], ops["dw"][0]
+    ext = (w - side * dw).contiguous()
+    K.reset_launch_counts()
+    acc = parzen_reduce(w, ext, dw)
+    acc_p = parzen_reduce_plain(w, ext, dw)
+    torch.testing.assert_close(acc, acc_p, rtol=1e-5, atol=0)
+    runs = [parzen_reduce(w, ext, dw) for _ in range(2)]
+    assert all(torch.equal(r, acc) for r in runs)
+    g = torch.tensor([gate], device=cuda_device)
+    out = parzen_apply(w, ext, dw, g, eps=EPS)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, parzen_apply_plain(w, ext, dw, g,
+                                                       eps=EPS),
+                               rtol=0, atol=1e-6)
+    assert K.launch_counts() == {"parzen_reduce": 3, "parzen_apply": 1}
+    flat = w.reshape(-1)[:-5]
+    out, got = parzen_blend(flat, ext.reshape(-1)[:-5], dw.reshape(-1)[:-5],
+                            EPS)
+    ref, want = parzen_blend_ref(flat, ext.reshape(-1)[:-5],
+                                 dw.reshape(-1)[:-5], EPS)
+    assert float(got) == float(want) == gate
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
