@@ -41,7 +41,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  11. [kmeans] the paper's K-Means workload at full size: 10^8 samples
      (k=d=10) made on the card, simulate_rounds W=64 b=500 for 200 rounds
      (ASGD, silent) and 10 BATCH iterations, counters zeroed before and
-     read after — B4 twice a round; its profile over 10 rounds.
+     read after — B4 twice a round; its profile over 10 rounds;
+ 12. [kernels] B5 (ssd_scan) at the mamba2-370m serve shape (batch 4, S
+     2048, 32 heads of 64, state 128, chunk 128), at a padded S (2000,
+     through ops.ssd_scan) and at the decay extremes: y and h within 1e-4
+     of the largest magnitude of the plain version's, bitwise repeatable;
+ 13. [serve-check] reduced mamba2-370m and smollm-135m from the same
+     CPU-made weights, GPU against CPU: prefill and 4 decode steps' logits,
+     greedy tokens off near-ties, every cache leaf;
+ 14. [serve] the serving path, ``repro_torch.launch.serve.main``, on full
+     mamba2-370m (batch 4, prompt 2048, 32 new tokens), counters zeroed
+     before and read after — B5 48 times a prefill, 0 in decode — its
+     steady prefill and decode times, a profile of one prefill and of one
+     decode step; then full smollm-135m (batch 4, prompt 1024) and its
+     steady times.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and last the device JSON line.  Without a GPU, or without the repo's
 sources beside it, it exits non-zero and prints no result.
@@ -1068,6 +1081,290 @@ def phase_kmeans(torch, device):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the serving slice: B5 (ssd_scan) and the serve path
+# ---------------------------------------------------------------------------
+
+SSD_SHAPE = (4, 2048, 32, 64, 128, 128)   # mamba2-370m serve: Bb S H P N Q
+SSD_PAD_S = 2000                          # padded to 2048 by ops.ssd_scan
+TOL_SSD = 1e-4                            # of the result's largest magnitude
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
+SMOLLM_PROMPT = 1024                      # below FLASH_MIN_SEQ (2048)
+TOL_SERVE = 1e-4                          # GPU vs CPU, of the largest
+#                                           magnitude (bf16 KV leaves 1e-2)
+
+
+def ssd_operands(torch, device, Bb, S, H, P, N, seed=5):
+    """The mixer's inputs, drawn like the model's: x, B, C standard normal;
+    dt = softplus(randn + dt_bias 0); A = -exp(A_log) with A_log =
+    log(linspace(1, 16, H)), the init's, for every row."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((Bb, S, H, P), generator=g, device=device)
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bb, S, H), generator=g, device=device))
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=device))
+    A = (-torch.exp(a_log)).expand(Bb, H).contiguous()
+    B = torch.randn((Bb, S, N), generator=g, device=device)
+    C = torch.randn((Bb, S, N), generator=g, device=device)
+    return x, dt, A, B, C
+
+
+def ssd_check(torch, name, out, out_p, repeat=None):
+    """y and h within TOL_SSD of the plain version's largest magnitude,
+    finite; with ``repeat``, two more launches bitwise equal.  Returns
+    (max abs err, max rel err over |ref| >= 1e-3 max|ref|, max|ref|) for y,
+    then for h."""
+    errs = []
+    for what, a, b in (("y", out[0], out_p[0]), ("h", out[1], out_p[1])):
+        scale = float(b.abs().max())
+        diff = (a - b).abs()
+        err = float(diff.max())
+        big = b.abs() >= 1e-3 * scale
+        rel = float((diff[big] / b.abs()[big]).max())
+        if not bool(torch.isfinite(a).all()) or not err <= TOL_SSD * scale:
+            raise AssertionError(f"{name} {what}: kernel vs plain max abs err "
+                                 f"{err:.3e} > {TOL_SSD} x {scale:.3e}")
+        errs += [err, rel, scale]
+    if repeat is not None:
+        for _ in range(2):
+            again = repeat()
+            if not all(torch.equal(p, q) for p, q in zip(again, out)):
+                raise AssertionError(f"{name}: not reproducible")
+    return errs
+
+
+def phase_ssd_kernel(torch, device):
+    """B5 against its plain version at the serve shape, at a padded S and
+    at the decay extremes."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_chunked
+    from repro_torch.kernels.ssd_scan.ops import pad_to_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
+
+    Bb, S, H, P, N, Q = SSD_SHAPE
+    ops = ssd_operands(torch, device, Bb, S, H, P, N)
+    run = lambda: ssd_scan_chunked(*ops, Q)                  # noqa: E731
+    plain = lambda: ssd_scan_plain(*ops, Q)                  # noqa: E731
+    out, out_p = run(), plain()
+    torch.cuda.synchronize()
+    ey, ry, sy, eh, rh, sh = ssd_check(torch, "B5/serve", out, out_p, run)
+    del out, out_p
+    # bytes: x, dt, A, B, C once, y and h once.  Operations (multiply-adds
+    # count 2), the least the function needs: C.B^T's lower triangle once
+    # per row (the heads share B and C), per head the triangle times xdt,
+    # C.h and the state update
+    nc = S // Q
+    n_bytes = 4 * (2 * Bb * S * H * P + Bb * S * H + Bb * H + 2 * Bb * S * N
+                   + Bb * H * N * P)
+    n_flops = (Bb * nc * Q * (Q + 1) * N
+               + Bb * H * nc * (Q * (Q + 1) * P + 4 * Q * N * P))
+    results = {}
+    time_pass(torch, results, ("B5", "serve"),
+              f"B5 Bb={Bb} S={S} H={H} P={P} N={N} chunk={Q}", run, plain,
+              ey, n_bytes, n_flops,
+              f" ({n_flops / 1e9:.2f} GFLOP; y max rel {ry:.3e}, max|y| "
+              f"{sy:.3e}; h max abs {eh:.3e} rel {rh:.3e}, max|h| {sh:.3e}; "
+              f"within {TOL_SSD} of max|plain|, bitwise repeatable)")
+    xs, dts, _, Bs, Cs = (t[:, :SSD_PAD_S] if t.ndim > 2 else t for t in ops)
+    out = ssd_scan(xs, dts, ops[2], Bs[:, :, None], Cs[:, :, None], chunk=Q)
+    xp, dtp, Bp, Cp = pad_to_chunk(xs, dts, Bs, Cs, Q)
+    y_p, h_p = ssd_scan_plain(xp, dtp, ops[2], Bp, Cp, Q)
+    torch.cuda.synchronize()
+    ey, _, _, eh, _, _ = ssd_check(torch, "B5/padded", out,
+                                   (y_p[:, :SSD_PAD_S], h_p))
+    log(f"[kernels] B5 padded S={SSD_PAD_S} -> {xp.shape[1]} through "
+        f"ops.ssd_scan: y max abs err {ey:.3e}, h {eh:.3e}")
+    del ops, xs, dts, Bs, Cs, xp, dtp, Bp, Cp, out, y_p, h_p
+    ones = torch.ones((1, 64, 2, 4), device=device)
+    ext = (ones, torch.full((1, 64, 2), 1e-4, device=device),
+           torch.tensor([[-100.0, -1e-3]], device=device),
+           torch.ones((1, 64, 8), device=device),
+           torch.ones((1, 64, 8), device=device))
+    ey, _, _, eh, _, _ = ssd_check(torch, "B5/extremes",
+                                   ssd_scan_chunked(*ext, 32),
+                                   ssd_scan_plain(*ext, 32))
+    log(f"[kernels] B5 decay extremes (A -100 and -1e-3, dt 1e-4): finite, "
+        f"y max abs err {ey:.3e}, h {eh:.3e}")
+    torch.cuda.empty_cache()
+    return results
+
+
+def serve_run(torch, cfg, params, tokens, dev, steps):
+    """Prefill, then ``steps`` decode steps fed the greedy tokens of
+    ``tokens['greedy']`` when given (else this run's own).  Returns
+    (logits per step on the CPU, greedy tokens, final cache on the CPU)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import model as M
+    p = tree_map(lambda x: x.to(dev), params)
+    prompt = tokens["prompt"].to(dev)
+    with torch.no_grad():
+        last, cache = M.prefill(cfg, p, {"tokens": prompt},
+                                cache_len=prompt.shape[1] + steps)
+        logits, greedy = [last.cpu()], []
+        for i in range(steps):
+            tok = (tokens["greedy"][i] if "greedy" in tokens
+                   else logits[-1].argmax(-1))
+            greedy.append(logits[-1].argmax(-1))
+            step, cache = M.decode_step(cfg, p, tok.to(dev),
+                                        prompt.shape[1] + i, cache)
+            logits.append(step.cpu())
+    return logits, greedy, tree_map(lambda x: x.cpu(), cache)
+
+
+def phase_serve_check(torch, device):
+    """Reduced mamba2-370m and smollm-135m, the same CPU-made weights and
+    prompts on the GPU (B5 in every 'S' layer) and the CPU (plain): the
+    prefill's and 4 decode steps' logits within TOL_SERVE of their largest
+    magnitude, the greedy tokens equal wherever the CPU's top-2 margin
+    exceeds twice that, and every cache leaf close."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.tree import flatten_sorted
+    from repro_torch.models.model import init_model
+
+    for arch in ("mamba2-370m", "smollm-135m"):
+        cfg = get_arch(arch).reduced()
+        params = init_model(cfg, 0, device="cpu")
+        prompt = torch.randint(0, cfg.vocab, (2, 32),
+                               generator=torch.Generator().manual_seed(1))
+        cpu = serve_run(torch, cfg, params, {"prompt": prompt}, "cpu", 4)
+        K.reset_launch_counts()
+        gpu = serve_run(torch, cfg, params, {"prompt": prompt,
+                                             "greedy": cpu[1]}, device, 4)
+        counts = K.launch_counts()
+        want = cfg.n_layers if arch == "mamba2-370m" else 0
+        if counts.get("ssd_scan", 0) != want:
+            raise AssertionError(f"serve check {arch}: launches {counts}")
+        errs, near = [], 0
+        for lc, lg in zip(cpu[0], gpu[0]):
+            scale = float(lc.abs().max())
+            err = float((lg - lc).abs().max())
+            if not err <= TOL_SERVE * scale:
+                raise AssertionError(f"serve check {arch}: logits differ by "
+                                     f"{err:.3e} > {TOL_SERVE} x {scale:.3e}")
+            errs.append(err)
+            top = torch.topk(lc, 2, dim=-1).values
+            clear = (top[:, 0] - top[:, 1]) > 2 * TOL_SERVE * scale
+            near += int((~clear).sum())
+            if not bool((lg.argmax(-1) == lc.argmax(-1))[clear].all()):
+                raise AssertionError(f"serve check {arch}: greedy tokens "
+                                     f"differ off a near-tie")
+        cache_err = 0.0
+        for a, b in zip(flatten_sorted(gpu[2])[0], flatten_sorted(cpu[2])[0]):
+            tol = 1e-2 if b.dtype == torch.bfloat16 else TOL_SERVE
+            d = float((a.float() - b.float()).abs().max())
+            if not d <= tol * max(float(b.float().abs().max()), 1e-30):
+                raise AssertionError(f"serve check {arch}: a cache leaf "
+                                     f"differs by {d:.3e}")
+            cache_err = max(cache_err, d)
+        log(f"[serve-check] reduced {arch}, batch 2, prompt 32, 4 decode "
+            f"steps: GPU vs CPU logits max abs err "
+            f"{[float(f'{e:.3e}') for e in errs]}, greedy tokens equal "
+            f"({near} near ties), cache leaves max abs err {cache_err:.3e}; "
+            f"launches {counts}")
+
+
+def serve_timings(torch, cfg, params, batch):
+    """Two ``serve.generate`` runs (warm-up, steady) of SERVE_NEW tokens."""
+    from repro_torch.launch import serve
+    prompt = batch["tokens"].shape[1]
+    for label in ("warm-up", "steady"):
+        _, t = serve.generate(cfg, params, batch, prompt, SERVE_NEW)
+        log(f"[serve] {cfg.name} generate ({label}): prefill "
+            f"{t['prefill_ms']:.3f} ms, decode {t['decode_ms_per_token']:.3f}"
+            f" ms per token, {SERVE_BATCH * t['steps_per_s']:.1f} tokens/s "
+            f"decoded, {SERVE_BATCH * prompt / t['prefill_ms'] * 1e3:.0f} "
+            f"prompt tokens/s")
+
+
+def phase_serve(torch, device):
+    """``launch.serve.main`` on full mamba2-370m (counters zeroed before,
+    read after: B5 once per 'S' layer of the one prefill, none in decode),
+    the per-phase counts, the steady prefill and decode times, a profile
+    of one prefill and of one decode step; then ``serve.main`` and the
+    steady times on full smollm-135m.  Returns the mamba2 run's counts."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.ssd_scan.kernel import SCAN
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_arch("mamba2-370m")
+    argv = ["--arch", "mamba2-370m", "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--new-tokens",
+            str(SERVE_NEW)]
+    log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv)}")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    toks = serve.main(argv)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW) or \
+            not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"serve: tokens {tuple(toks.shape)} "
+                             f"{toks[0].tolist()}")
+    if counts.get(SCAN, 0) != cfg.n_layers:
+        raise AssertionError(f"serve: {SCAN} launched {counts.get(SCAN, 0)} "
+                             f"times in one prefill + {SERVE_NEW - 1} decode "
+                             f"steps of {cfg.n_layers} 'S' layers: {counts}")
+    log(f"[serve] launches {counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    params = M.init_model(cfg, 0, device=device)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           device=device, generator=torch.Generator(
+                               device=device).manual_seed(1))
+    batch = {"tokens": tokens}
+    cache_len = SERVE_PROMPT + SERVE_NEW
+    with torch.no_grad():
+        K.reset_launch_counts()
+        last, cache = M.prefill(cfg, params, batch, cache_len=cache_len)
+        torch.cuda.synchronize()
+        pre = K.launch_counts()
+        K.reset_launch_counts()
+        tok = last.argmax(-1)
+        for i in range(4):
+            logits, cache = M.decode_step(cfg, params, tok, SERVE_PROMPT + i,
+                                          cache)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        dec = K.launch_counts()
+        if pre.get(SCAN, 0) != cfg.n_layers or dec.get(SCAN, 0) != 0 or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"serve: per-phase launches prefill {pre}, "
+                                 f"4 decode steps {dec}")
+        del last, cache, logits
+    log(f"[serve] launches per prefill {pre}, in 4 decode steps {dec}")
+    serve_timings(torch, cfg, params, batch)
+    with torch.no_grad():
+        profile_step(torch, "serve-profile", lambda: M.prefill(
+            cfg, params, batch, cache_len=cache_len), what="one prefill")
+        _, cache = M.prefill(cfg, params, batch, cache_len=cache_len)
+        tok = tokens[:, -1]
+        profile_step(torch, "serve-profile", lambda: M.decode_step(
+            cfg, params, tok, SERVE_PROMPT, cache), what="one decode step")
+    del params, tokens, batch, cache
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("smollm-135m")
+    argv = ["--arch", "smollm-135m", "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SMOLLM_PROMPT), "--new-tokens",
+            str(SERVE_NEW)]
+    log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv)}")
+    torch.cuda.reset_peak_memory_stats()
+    toks = serve.main(argv)
+    if tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW):
+        raise AssertionError(f"serve smollm: tokens {tuple(toks.shape)}")
+    log(f"[serve] smollm-135m peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    params = M.init_model(cfg, 0, device=device)
+    serve_timings(torch, cfg, params, {"tokens": torch.randint(
+        0, cfg.vocab, (SERVE_BATCH, SMOLLM_PROMPT), device=device,
+        generator=torch.Generator(device=device).manual_seed(1))})
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script — "
@@ -1078,6 +1375,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "test needs a CUDA GPU", file=sys.stderr)
         return 3
+    t_start = time.perf_counter()
     sys.path.insert(0, str(SRC))
     from repro_torch import kernels as K
     from repro_torch import set_full_fp32_precision
@@ -1087,6 +1385,8 @@ def main() -> int:
     from repro_torch.kernels.kmeans_assign.kernel import SOURCE as KM_SOURCE
     from repro_torch.kernels.parzen_blend.kernel import APPLY as PZ_APPLY
     from repro_torch.kernels.parzen_blend.kernel import REDUCE as PZ_REDUCE
+    from repro_torch.kernels.ssd_scan.kernel import SCAN
+    from repro_torch.kernels.ssd_scan.kernel import SOURCE as SSD_SOURCE
 
     set_full_fp32_precision()
     device = torch.device("cuda")
@@ -1111,6 +1411,9 @@ def main() -> int:
     counts.update(phase_parzen_blend(torch, device))
     phase_kmeans_check(torch, device)
     counts.update(phase_kmeans(torch, device))
+    kres.update(phase_ssd_kernel(torch, device))
+    phase_serve_check(torch, device)
+    counts.update(phase_serve(torch, device))
 
     gb = "src/repro/kernels/gossip_blend/kernel.py"
     km = "src/repro/kernels/kmeans_assign/kernel.py"
@@ -1126,7 +1429,9 @@ def main() -> int:
             ("B3a", APPLY_1, SOURCE, f"{gb}:141", 4),
             ("B4", ASSIGN, KM_SOURCE, f"{km}:57", "batch"),
             ("B6r", PZ_REDUCE, SOURCE, f"{pz}:65", "open"),
-            ("B6a", PZ_APPLY, SOURCE, f"{pz}:85", "open")):
+            ("B6a", PZ_APPLY, SOURCE, f"{pz}:85", "open"),
+            ("B5", SCAN, SSD_SOURCE, "src/repro/kernels/ssd_scan/kernel.py:85",
+             "serve")):
         r = kres[(tag, case)]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1135,6 +1440,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
+        f"(build included)")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,0 +1,96 @@
+"""CLI server: batched prefill + greedy decode.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --batch 4 --prompt-len 2048 --new-tokens 32
+
+serves full mamba2-370m on the GPU (every 'S' layer of the prefill through
+the SSD-scan kernel B5; decode is plain torch, as in the reference).  Add
+``--device cpu`` (and ``--reduced`` for the smoke-scale arch) to run on the
+CPU through the kernels' plain versions.  The port serves the archs whose
+layers it carries ('G' dense, 'S' mamba-2); the others raise with their
+ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import resolve_device, set_full_fp32_precision
+from ..configs.registry import get_arch
+from ..models import model as M
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.no_grad()
+def generate(cfg, params, batch, prompt_len, new_tokens):
+    """Prefill + greedy decode loop.  Returns (tokens (B, new_tokens),
+    {"prefill_ms", "decode_ms_per_token", "steps_per_s"}): host-clock times
+    of work that ends in a device sync."""
+    device = batch["tokens"].device
+    _sync(device)
+    t0 = time.perf_counter()
+    last, cache = M.prefill(cfg, params, batch,
+                            cache_len=prompt_len + new_tokens)
+    tok = torch.argmax(last, dim=-1)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(new_tokens - 1):
+        logits, cache = M.decode_step(cfg, params, tok, prompt_len + i, cache)
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+    _sync(device)
+    steps = max(new_tokens - 1, 1)
+    decode_s = max(time.perf_counter() - t0, 1e-9)
+    return torch.stack(out, dim=1).to(torch.int32), {
+        "prefill_ms": prefill_s * 1e3,
+        "decode_ms_per_token": decode_s * 1e3 / steps,
+        "steps_per_s": (new_tokens - 1) / decode_s}
+
+
+def main(argv=None):
+    """Parse flags, serve one batch of random prompts, print the timings
+    and the reference's two lines; returns the tokens (batch, new_tokens)."""
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    set_full_fp32_precision()
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = M.init_model(cfg, args.seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab,
+                                     (args.batch, args.prompt_len),
+                                     generator=gen, device=device)}
+    toks, t = generate(cfg, params, batch, args.prompt_len, args.new_tokens)
+    print(f"prefill {t['prefill_ms']:.3f} ms ({args.batch} x "
+          f"{args.prompt_len} tokens), decode {t['decode_ms_per_token']:.3f}"
+          f" ms per token, {args.batch * t['steps_per_s']:.1f} tokens/s "
+          f"on {device}", flush=True)
+    print(f"arch={cfg.name} batch={args.batch} "
+          f"decoded {toks.shape[1]} tokens/seq at {t['steps_per_s']:.1f} "
+          f"steps/s", flush=True)
+    print("first sequence:", toks[0].tolist(), flush=True)
+    return toks
+
+
+if __name__ == "__main__":
+    main()

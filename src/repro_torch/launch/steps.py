@@ -73,8 +73,12 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     (SimuParallelSGD: local steps only) or 'sync' (synchronous
     data-parallel SGD).  inner: 'sgd' | 'momentum' | 'adam'.  lr_schedule
     (pipelined only): step -> lr, the consume blend's per-round lr operand.
+    Raises NotImplementedError for an arch the port cannot train ('S'
+    layers: the SSD scan has no backward yet).
     """
     from ..optim import adam_update, momentum_update
+
+    M.check_supported(cfg, train=True)
 
     gcfg = gcfg or GossipConfig()
     acfg = acfg or ASGDConfig(eps=0.01)

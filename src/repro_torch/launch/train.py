@@ -15,7 +15,7 @@ kernels' plain versions.
 
 Not ported yet, and raising with the ROADMAP.md item that carries them:
 --elastic (per-peer liveness, item 4), --save and --restore (checkpoints,
-item 5).
+item 5), archs with 'S' (mamba-2 SSD) layers (SSM training, item 9).
 """
 from __future__ import annotations
 
@@ -149,6 +149,7 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    M.check_supported(cfg, train=True)
     W = args.workers
 
     params = M.init_model(cfg, args.seed, device=device)

@@ -1,5 +1,5 @@
 """Shared model building blocks: initializers, norms, RoPE, masks, dense
-attention.
+attention, decode attention against a KV cache.
 
 Worker batching: every apply function here takes params whose leaves carry
 a LEADING WORKER AXIS (W, ...) and activations (W, B, S, ...) — the
@@ -179,6 +179,37 @@ def attention_dense(params, spec: AttnSpec, x, positions, mask):
     probs = F.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("wbhqs,wbshk->wbqhk", probs, v)
     return torch.einsum("wbqhk,whkd->wbqd", out, params["wo"])
+
+
+def attention_decode(params, spec: AttnSpec, x, pos: int, cache):
+    """One query position against a KV cache.  x: (W, B, 1, D); pos: host
+    int, the current position; cache: k/v (W, B, S_max, KV, Dh) bf16.
+
+    Writes this step's k/v into the cache at ``pos`` IN PLACE (the
+    reference returns an updated copy) and returns out (W, B, 1, D).  The
+    scores are taken over positions 0..pos only: the reference masks the
+    rest to -1e30, which softmax turns into exact zeros.  The bf16 cache is
+    read as f32 at the products, as JAX promotes ``f32 q · bf16 k``."""
+    positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _project_qkv(params, spec, x, positions)
+    cache["k"][:, :, pos] = k_new[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, :, pos] = v_new[:, :, 0].to(cache["v"].dtype)
+    k = _gqa_expand(cache["k"][:, :, :pos + 1].float(), spec.n_heads)
+    v = _gqa_expand(cache["v"][:, :, :pos + 1].float(), spec.n_heads)
+    scale = spec.head_dim ** -0.5
+    s = torch.einsum("wbqhk,wbshk->wbhqs", q * scale, k)
+    p = F.softmax(s.float(), dim=-1).to(x.dtype)
+    out = torch.einsum("wbhqs,wbshk->wbqhk", p, v)
+    return torch.einsum("wbqhk,whkd->wbqd", out, params["wo"])
+
+
+def init_kv_cache(batch, max_seq, n_kv_heads, head_dim,
+                  dtype=torch.bfloat16, device=None):
+    """One model's zero KV cache: k/v (batch, max_seq, KV, Dh), bf16 as in
+    the reference."""
+    shape = (batch, max_seq, n_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def activation(name):

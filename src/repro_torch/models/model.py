@@ -3,7 +3,8 @@
 ``forward_w``/``loss_fn_w`` run W worker replicas at once (every param leaf
 and the tokens carry a leading worker axis — the reference's vmap over
 workers written out); ``forward``/``loss_fn`` take one model in the
-reference's layout.
+reference's layout, as do the serving entry points ``init_cache``,
+``prefill`` and ``decode_step`` (which run the layers at W = 1).
 
 The layer params keep the reference's STACKED layout: every leaf of
 ``params["scan"]["pos{j}"]`` carries a leading axis over the full cycles
@@ -19,7 +20,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..core.tree import flatten_sorted, tree_map, unflatten
-from .blocks import apply_layer, check_supported, init_layer
+from .blocks import (apply_layer, apply_layer_decode, check_supported,
+                     init_layer, init_layer_cache)
 from .common import dense_init, embed_init, make_norm
 
 
@@ -31,10 +33,10 @@ def cycle_structure(cfg: ModelConfig):
     return cfg.pattern_cycle, n_full, tail
 
 
-def _tree_stack(trees):
+def _tree_stack(trees, dim: int = 0):
     leaves = [flatten_sorted(t)[0] for t in trees]
     treedef = flatten_sorted(trees[0])[1]
-    return unflatten(treedef, [torch.stack(xs) for xs in zip(*leaves)])
+    return unflatten(treedef, [torch.stack(xs, dim) for xs in zip(*leaves)])
 
 
 def _tree_unstack(tree, n: int, dim: int = 0):
@@ -79,9 +81,12 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
     return params["embed"][widx, tokens]
 
 
-def forward_w(cfg: ModelConfig, params, batch):
+def forward_w(cfg: ModelConfig, params, batch, *, return_cache=False,
+              cache_len=None):
     """W worker replicas at once: params leaves (W, ...), batch["tokens"]
-    (W, B, S).  Returns logits (W, B, S, V)."""
+    (W, B, S).  Returns logits (W, B, S, V) or, with ``return_cache``,
+    (logits, cache): the reference's cache tree with leaves (W, n_full, B,
+    ...) under "scan" and (W, B, ...) under "tail"."""
     check_supported(cfg)
     cycle, n_full, tail = cycle_structure(cfg)
     tokens = batch["tokens"]
@@ -90,14 +95,25 @@ def forward_w(cfg: ModelConfig, params, batch):
     # the stacked layer axis sits behind the worker axis
     stacks = {j: _tree_unstack(params["scan"][f"pos{j}"], n_full, dim=1)
               for j in range(len(cycle))}
+    kw = {"return_cache": return_cache, "cache_len": cache_len}
+    scan_caches = {j: [] for j in range(len(cycle))}
     for i in range(n_full):
         for j, ltype in enumerate(cycle):
-            x = apply_layer(cfg, ltype, stacks[j][i], x, positions)
+            x, c = apply_layer(cfg, ltype, stacks[j][i], x, positions, **kw)
+            scan_caches[j].append(c)
+    tail_caches = {}
     for j, ltype in enumerate(tail):
-        x = apply_layer(cfg, ltype, params["tail"][f"t{j}"], x, positions)
+        x, tail_caches[f"t{j}"] = apply_layer(
+            cfg, ltype, params["tail"][f"t{j}"], x, positions, **kw)
     _, norm = make_norm(cfg.norm_type)
     x = norm(params["final_norm"], x)
-    return unembed(cfg, params, x)
+    logits = unembed(cfg, params, x)
+    if not return_cache:
+        return logits
+    cache = {"scan": {f"pos{j}": _tree_stack(cs, dim=1)
+                      for j, cs in scan_caches.items()},
+             "tail": tail_caches}
+    return logits, cache
 
 
 def unembed(cfg: ModelConfig, params, x):
@@ -137,3 +153,75 @@ def forward(cfg: ModelConfig, params, batch):
 def loss_fn(cfg: ModelConfig, params, batch):
     """Next-token cross-entropy of one model (the reference's loss_fn)."""
     return loss_fn_w(cfg, *_one_worker(params, batch))[0]
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode (one model, the reference's layout)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch, max_seq, dtype=torch.bfloat16,
+               device=None):
+    """One model's zero decode cache, the reference's tree: leaves
+    (n_full, batch, ...) under "scan", (batch, ...) under "tail"."""
+    check_supported(cfg)
+    cycle, n_full, tail = cycle_structure(cfg)
+
+    def stacked(ltype):
+        one = init_layer_cache(cfg, ltype, batch, max_seq, dtype, device)
+        return tree_map(lambda x: x.expand((n_full,) + tuple(x.shape))
+                        .contiguous(), one)
+
+    return {"scan": {f"pos{j}": stacked(t) for j, t in enumerate(cycle)},
+            "tail": {f"t{j}": init_layer_cache(cfg, t, batch, max_seq, dtype,
+                                               device)
+                     for j, t in enumerate(tail)}}
+
+
+def prefill(cfg: ModelConfig, params, batch, cache_len=None):
+    """Full-sequence pass that also builds the decode cache.  params: one
+    model; batch["tokens"]: (B, S).  Returns (last_logits (B, V), cache) —
+    the cache in the reference's tree and layout (see :func:`init_cache`);
+    its 'S' conv caches are zero, as the reference's are."""
+    logits, cache = forward_w(cfg, *_one_worker(params, batch),
+                              return_cache=True, cache_len=cache_len)
+    return logits[0, :, -1], tree_map(lambda x: x[0], cache)
+
+
+def decode_step(cfg: ModelConfig, params, token, pos: int, cache):
+    """token: (B,) int; pos: host int, the current write position; cache:
+    :func:`prefill`'s or :func:`init_cache`'s tree, updated IN PLACE (the
+    reference returns a new tree).  Returns (logits (B, V), cache)."""
+    cycle, n_full, tail = cycle_structure(cfg)
+    wparams = tree_map(lambda x: x[None], params)
+    x = embed_tokens(cfg, wparams, token[None, :, None])
+    stacks = {j: _tree_unstack(wparams["scan"][f"pos{j}"], n_full, dim=1)
+              for j in range(len(cycle))}
+    caches = {j: _tree_unstack(tree_map(lambda c: c[None],
+                                        cache["scan"][f"pos{j}"]),
+                               n_full, dim=1)
+              for j in range(len(cycle))}
+    for i in range(n_full):
+        for j, ltype in enumerate(cycle):
+            x = apply_layer_decode(cfg, ltype, stacks[j][i], x, pos,
+                                   caches[j][i])
+    for j, ltype in enumerate(tail):
+        x = apply_layer_decode(
+            cfg, ltype, wparams["tail"][f"t{j}"], x, pos,
+            tree_map(lambda c: c[None], cache["tail"][f"t{j}"]))
+    _, norm = make_norm(cfg.norm_type)
+    x = norm(wparams["final_norm"], x)
+    return unembed(cfg, wparams, x)[0, :, 0], cache
+
+
+def cache_max_seq(cache) -> int:
+    """Max-seq capacity of an attention KV cache: the S axis of a 'k' leaf
+    ((..., B, S, KV, Dh) — scan-stacked leaves too); 0 without one."""
+    if isinstance(cache, dict):
+        k = cache.get("k")
+        if torch.is_tensor(k) and k.ndim >= 4:
+            return k.shape[-3]
+        for v in cache.values():
+            n = cache_max_seq(v)
+            if n:
+                return n
+    return 0

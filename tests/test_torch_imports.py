@@ -52,3 +52,12 @@ def test_checker_sees_forbidden_imports(tmp_path):
 def test_kmeans_slice_modules_are_checked(module):
     """The K-Means slice's modules are among the files checked above."""
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", [
+    "kernels/ssd_scan/kernel.py", "kernels/ssd_scan/ref.py",
+    "kernels/ssd_scan/ops.py", "models/ssm.py", "launch/serve.py",
+    "examples/serve_decode.py"])
+def test_serve_slice_modules_are_checked(module):
+    """The serving slice's modules are among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES

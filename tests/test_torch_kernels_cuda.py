@@ -12,7 +12,10 @@ order — the kernels are built without fused multiply-add — save the sum
 over P externals, whose order torch picks).  B4 (K-Means E/M): idx equal
 wherever the two best scores do not nearly tie (top-2 f64 margin above
 1e-5 (|best| + 1)); counts exactly; sums within 1e-5 of an f64 sum
-relative to the f64 sum of |x|.
+relative to the f64 sum of |x|.  B5 (SSD scan): y and h within 1e-4 of
+the largest magnitude of the plain version's (f32 sums of up to Q·N terms,
+which cancel, in another order; the cumulative decay a warp prefix sum),
+bitwise repeatable.
 """
 import pathlib
 
@@ -42,6 +45,9 @@ from repro_torch.kernels.parzen_blend.kernel import (parzen_apply,
 from repro_torch.kernels.parzen_blend.ref import (parzen_apply_plain,
                                                   parzen_blend_ref,
                                                   parzen_reduce_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_chunked
+from repro_torch.kernels.ssd_scan.kernel import SOURCE as SSD_SOURCE
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
 
 W, R, LANE, BR = 4, 2624, 512, 64
 EPS, LR, ALPHA = 0.05, 0.07, 0.3
@@ -106,7 +112,7 @@ def test_kmeans_source_builds_apart_and_names_what_it_replaces():
     """B4 has its own source and library; B6 builds from the gossip-blend
     source (its two entry points above)."""
     assert KM_SOURCE in K.kernel_sources()
-    assert set(K.kernel_sources()) == {SOURCE, KM_SOURCE}
+    assert set(K.kernel_sources()) == {SOURCE, KM_SOURCE, SSD_SOURCE}
     assert K.library_path(KM_SOURCE).name.startswith("kmeans_assign-")
     text = pathlib.Path(KM_SOURCE).read_text()
     for name in ("kmeans_assign_pallas", "Bound:", "int kmeans_assign(",
@@ -336,3 +342,89 @@ def test_cuda_parzen_kernels_match_plain(cuda_device, side, gate):
                                  dw.reshape(-1)[:-5], EPS)
     assert float(got) == float(want) == gate
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# B5: the Mamba-2 chunked SSD scan
+# ---------------------------------------------------------------------------
+
+def test_ssd_source_builds_apart_and_names_what_it_replaces():
+    assert SSD_SOURCE in K.kernel_sources()
+    assert K.library_path(SSD_SOURCE).name.startswith("ssd_scan-")
+    text = pathlib.Path(SSD_SOURCE).read_text()
+    for name in ("ssd_scan_pallas", "Bound:", "int ssd_scan("):
+        assert name in text
+
+
+def ssd_operands(Bb, S, H, P, N, device, seed=0):
+    """Inputs drawn like the model's: dt = softplus(.), A = -exp(A_log)
+    over linspace(1, 16) per row (rows differ), B and C shared by the
+    heads."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((Bb, S, H, P), generator=g, device=device)
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bb, S, H), generator=g, device=device))
+    A = -torch.linspace(1.0, 16.0, H, device=device) * torch.arange(
+        1, Bb + 1, device=device)[:, None] / Bb
+    B = torch.randn((Bb, S, N), generator=g, device=device)
+    C = torch.randn((Bb, S, N), generator=g, device=device)
+    return x, dt, A.contiguous(), B, C
+
+
+def assert_near(ours, ref, tol=1e-4):
+    err = float((ours - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bb,S,H,P,N,chunk", [
+    (2, 128, 4, 8, 16, 32), (1, 64, 8, 64, 128, 64), (3, 96, 1, 4, 4, 32),
+    (2, 64, 32, 16, 16, 8),          # reduced mamba2: chunk 8
+    (1, 256, 2, 160, 128, 128),      # three P-tiles, the last narrower
+    (1, 96, 3, 8, 5, 96),            # chunk neither a power of 2 nor 32k
+    (4, 512, 32, 64, 128, 128)])     # the serve shape at S = 512
+def test_cuda_ssd_scan_matches_plain(cuda_device, Bb, S, H, P, N, chunk):
+    ops = ssd_operands(Bb, S, H, P, N, cuda_device, seed=S + P)
+    K.reset_launch_counts()
+    y, h = ssd_scan_chunked(*ops, chunk)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {"ssd_scan": 1}
+    yp, hp = ssd_scan_plain(*ops, chunk)
+    assert_near(y, yp)
+    assert_near(h, hp)
+    for _ in range(2):
+        y2, h2 = ssd_scan_chunked(*ops, chunk)
+        assert torch.equal(y2, y) and torch.equal(h2, h)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_pads_and_survives_decay_extremes(cuda_device):
+    x, dt, A, B, C = ssd_operands(2, 200, 4, 16, 32, cuda_device)
+    y, h = ssd_scan(x, dt, A, B[:, :, None], C[:, :, None], chunk=64)
+    yp, hp = ssd_scan_plain(*[torch.nn.functional.pad(
+        t, (0, 0) * (t.ndim - 2) + (0, 56)) for t in (x, dt)], A,
+        *[torch.nn.functional.pad(t, (0, 0, 0, 56)) for t in (B, C)], 64)
+    assert_near(y, yp[:, :200])
+    assert_near(h, hp)
+    ones = torch.ones((1, 64, 2, 4), device=cuda_device)
+    y, h = ssd_scan(ones, torch.full((1, 64, 2), 1e-4, device=cuda_device),
+                    torch.tensor([-100.0, -1e-3], device=cuda_device),
+                    torch.ones((1, 64, 1, 8), device=cuda_device),
+                    torch.ones((1, 64, 1, 8), device=cuda_device), chunk=32)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_rejects_bad_operands(cuda_device):
+    x, dt, A, B, C = ssd_operands(1, 256, 2, 8, 16, cuda_device)
+    with pytest.raises(ValueError, match="exceed"):
+        ssd_scan_chunked(x, dt, A, B, C, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_chunked(x, dt, A, B.transpose(1, 2).contiguous()
+                         .transpose(1, 2), C, 64)
+    with pytest.raises(ValueError, match="several devices"):
+        ssd_scan_chunked(x, dt, A.cpu(), B, C, 64)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssd_scan_chunked(x.requires_grad_(), dt, A, B, C, 64)
+    with torch.no_grad():
+        ssd_scan_chunked(x, dt, A, B, C, 64)

@@ -1,0 +1,174 @@
+"""The port's serving path (models/model.py prefill/decode_step,
+launch/serve.py, examples/serve_decode.py) against the reference's on
+reduced mamba2-370m and reduced smollm-135m, on reference-initialized
+weights carried over with repro_torch.convert and prompts made from a seed
+with numpy.
+
+Tolerance: 1e-4 of the largest magnitude (f32 matmuls and the chunked SSD
+scan summed in another order; the KV cache is bf16 in both packages and is
+compared within one bf16 step of its magnitude).  Cache leaves are compared
+leaf by leaf, the zero conv caches of the 'S' layers exactly.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_arch as jget_arch
+from repro.launch.serve import generate as jgenerate
+from repro.models import model as JM
+from repro_torch.configs.registry import get_arch
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.tree import flatten_sorted
+from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import model as TM
+
+ARCHS = ["mamba2-370m", "smollm-135m"]
+BATCH, PROMPT, STEPS = 2, 16, 4
+
+
+def setup(arch, seed=0):
+    cfg = jget_arch(arch).reduced()
+    jp = JM.init_model(cfg, jax.random.key(seed))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (BATCH, PROMPT)).astype(np.int32)
+    return cfg, jp, tp, tokens
+
+
+def assert_near(ours, ref, tol=1e-4):
+    ours = ours.float().numpy() if torch.is_tensor(ours) else ours
+    ref = np.asarray(ref, dtype=np.float32)
+    assert ours.shape == ref.shape
+    err, scale = np.abs(ours - ref).max(), np.abs(ref).max()
+    assert err <= tol * scale, (err, scale)
+
+
+def assert_cache_near(ours, ref):
+    leaves, _ = flatten_sorted(ours)
+    jleaves = jax.tree.leaves(ref)
+    assert len(leaves) == len(jleaves)
+    for t, j in zip(leaves, jleaves):
+        assert tuple(t.shape) == j.shape
+        if not np.asarray(j, np.float32).any():   # the zero conv caches
+            assert not t.any()
+        else:
+            assert_near(t, j, 1e-2 if t.dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_reference(arch):
+    """Last logits of the prefill and of 4 decode steps, fed the
+    reference's greedy tokens, and every cache leaf after each."""
+    cfg, jp, tp, tokens = setup(arch)
+    tcfg = get_arch(arch).reduced()
+    cache_len = PROMPT + STEPS
+    jlast, jcache = JM.prefill(cfg, jp, {"tokens": jnp.asarray(tokens)},
+                               cache_len=cache_len)
+    last, cache = TM.prefill(tcfg, tp, {"tokens": torch.from_numpy(tokens)},
+                             cache_len=cache_len)
+    assert_near(last, jlast)
+    assert_cache_near(cache, jcache)
+    if arch == "mamba2-370m":
+        assert not cache["scan"]["pos0"]["conv"].any()
+    jdecode = jax.jit(lambda p, t, pos, c: JM.decode_step(cfg, p, t, pos, c))
+    tok = jnp.argmax(jlast, axis=-1).astype(jnp.int32)
+    for i in range(STEPS):
+        jlogits, jcache = jdecode(jp, tok, jnp.int32(PROMPT + i), jcache)
+        logits, cache = TM.decode_step(tcfg, tp, torch.from_numpy(
+            np.array(tok)), PROMPT + i, cache)
+        assert_near(logits, jlogits)
+        assert_cache_near(cache, jcache)
+        tok = jnp.argmax(jlogits, axis=-1).astype(jnp.int32)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_after_prefill_against_teacher_forcing(arch):
+    """The reference's prefill keeps a ZERO conv cache for 'S' layers (its
+    post-conv tail is dropped), so for mamba2 the first decode step is not
+    the full forward's next logits, while for the dense arch it is (up to
+    the bf16 KV cache).  The port reproduces this rather than fixing it."""
+    cfg, jp, tp, tokens = setup(arch, seed=1)
+    tcfg = get_arch(arch).reduced()
+    nxt = np.full((BATCH, 1), 7, np.int32)
+    full = np.concatenate([tokens, nxt], axis=1)
+    _, cache = TM.prefill(tcfg, tp, {"tokens": torch.from_numpy(tokens)},
+                          cache_len=PROMPT + 1)
+    logits, _ = TM.decode_step(tcfg, tp, torch.from_numpy(nxt[:, 0]),
+                               PROMPT, cache)
+    # teacher forcing needs a whole number of SSD chunks: pad the reference
+    # forward to one and read the logits at the new token
+    pad = -full.shape[1] % cfg.ssm_chunk if arch == "mamba2-370m" else 0
+    padded = np.concatenate([full, np.zeros((BATCH, pad), np.int32)], 1)
+    forced = JM.forward(cfg, jp, {"tokens": jnp.asarray(padded)},
+                        remat=False)[0][:, PROMPT]
+    gap = float(np.abs(logits.numpy() - np.asarray(forced)).max())
+    scale = float(np.abs(np.asarray(forced)).max())
+    if arch == "mamba2-370m":
+        assert gap > 0.1 * scale
+    else:   # equal up to the bf16 rounding of the KV cache
+        assert gap <= 1e-2 * scale
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_tokens_match_reference(arch):
+    cfg, jp, tp, tokens = setup(arch, seed=2)
+    jtoks, _ = jgenerate(cfg, jp, {"tokens": jnp.asarray(tokens)}, PROMPT,
+                         STEPS + 1)
+    toks, t = tserve.generate(get_arch(arch).reduced(), tp,
+                              {"tokens": torch.from_numpy(tokens)}, PROMPT,
+                              STEPS + 1)
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(jtoks))
+    assert t["prefill_ms"] > 0 and t["decode_ms_per_token"] > 0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_main_on_cpu(arch):
+    toks = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                        "--batch", "2", "--prompt-len", "16",
+                        "--new-tokens", "4"])
+    assert toks.shape == (2, 4) and toks.dtype == torch.int32
+
+
+def test_serve_main_requires_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.main(["--arch", "mamba2-370m", "--reduced"])
+
+
+def test_init_cache_matches_reference_tree():
+    for arch in ARCHS:
+        cfg = jget_arch(arch).reduced()
+        jc = JM.init_cache(cfg, 2, 24)
+        tc = TM.init_cache(get_arch(arch).reduced(), 2, 24)
+        leaves = flatten_sorted(tc)[0]
+        assert [tuple(t.shape) for t in leaves] == \
+            [x.shape for x in jax.tree.leaves(jc)]
+        assert [str(t.dtype)[6:] for t in leaves] == \
+            [str(x.dtype) for x in jax.tree.leaves(jc)]
+        assert TM.cache_max_seq(tc) == JM.cache_max_seq(jc)
+
+
+def test_training_an_ssm_arch_raises():
+    cfg = get_arch("mamba2-370m").reduced()
+    with pytest.raises(NotImplementedError, match="SSM training"):
+        make_train_step(cfg)
+    with pytest.raises(NotImplementedError, match="SSM training"):
+        ttrain.main(["--arch", "mamba2-370m", "--reduced", "--device",
+                     "cpu", "--steps", "1"])
+
+
+def test_serve_decode_example_serves_the_ported_archs(capsys):
+    from repro_torch.examples import serve_decode
+    with pytest.raises(NotImplementedError, match="item 9") as err:
+        serve_decode.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    for arch in ARCHS:
+        assert f"arch={arch}-smoke" in out
+    for arch in serve_decode.ARCHS:
+        if arch not in ARCHS:
+            assert arch in str(err.value)
