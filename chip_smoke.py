@@ -43,9 +43,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (ASGD, silent) and 10 BATCH iterations, counters zeroed before and
      read after — B4 twice a round; its profile over 10 rounds;
  12. [kernels] B5 (ssd_scan) at the mamba2-370m serve shape (batch 4, S
-     2048, 32 heads of 64, state 128, chunk 128), at a padded S (2000,
-     through ops.ssd_scan) and at the decay extremes: y and h within 1e-4
-     of the largest magnitude of the plain version's, bitwise repeatable;
+     2048, 32 heads of 64, state 128, chunk 128): its time against both
+     bounds (tensor cores in split TF32, f32 SIMT), device launches a
+     call; as views of a conv output (read in place, bitwise equal to
+     contiguous copies), at a padded S (2000, through ops.ssd_scan), at the
+     decay extremes and on cancelling sums (split TF32 within the gate):
+     y and h within 1e-4 of the largest magnitude of the plain version's,
+     bitwise repeatable;
  13. [serve-check] reduced mamba2-370m and smollm-135m from the same
      CPU-made weights, GPU against CPU: prefill and 4 decode steps' logits,
      greedy tokens off near-ties, every cache leaf;
@@ -76,6 +80,7 @@ ROW_RANGE = (61824, 133120)          # partition 1 of the main path's layout
 EPS, LR = 0.05, 0.05
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12               # f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12             # TF32 on the tensor cores, dense
 MAIN_STEPS = 8
 PYTREE_STEPS = 8
 TOL_REDUCE_RTOL = 1e-5               # sums in another order
@@ -488,10 +493,12 @@ def phase_breakdown(torch, device):
                                                 1))
 
 
-def profile_step(torch, tag, run, what="one step"):
+def profile_step(torch, tag, run, what="one step", group=None):
     """Wall time, device busy time and idle share of one call of ``run``
     (after a warm-up call), and the top device kernels, from a
-    torch.profiler trace."""
+    torch.profiler trace; with ``group`` = (label, name parts), the summed
+    device time of the kernels whose names hold one of the parts, and its
+    share of the device busy time."""
     run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -521,6 +528,11 @@ def profile_step(torch, tag, run, what="one step"):
             f"{len(spans)} device ops")
         for name, us in top:
             log(f"[{tag}]   {us / 1e3:8.3f} ms  {name[:100]}")
+        if group:
+            us = sum(t for n, t in by_name.items()
+                     if any(part in n for part in group[1]))
+            log(f"[{tag}] {group[0]}: {us / 1e3:.3f} ms of device time, "
+                f"{us / busy:.1%} of the device busy time")
     else:
         log(f"[{tag}] the trace holds no device events: device busy share "
             "not measured")
@@ -1088,6 +1100,7 @@ def phase_kmeans(torch, device):
 SSD_SHAPE = (4, 2048, 32, 64, 128, 128)   # mamba2-370m serve: Bb S H P N Q
 SSD_PAD_S = 2000                          # padded to 2048 by ops.ssd_scan
 TOL_SSD = 1e-4                            # of the result's largest magnitude
+SSD_KERNEL_NAMES = ("chunk_prep", "chunk_state", "chunk_out")   # B5's stages
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SMOLLM_PROMPT = 1024                      # below FLASH_MIN_SEQ (2048)
 TOL_SERVE = 1e-4                          # GPU vs CPU, of the largest
@@ -1133,10 +1146,30 @@ def ssd_check(torch, name, out, out_p, repeat=None):
     return errs
 
 
+def ssd_cancelling(torch, device, Bb, S, H, P, N, seed=7):
+    """x alternating in sign along S over B and C that share a large
+    constant component plus small noise, dt near constant, slow decay: y is
+    ~1% of its terms, so products that keep only TF32's ~3 digits miss the
+    TOL_SSD gate."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    sign = (-1.0) ** torch.arange(S, device=device)
+    x = sign[None, :, None, None] * (1 + 0.1 * torch.randn(
+        (Bb, S, H, P), generator=g, device=device))
+    dt = 0.05 + 0.001 * torch.rand((Bb, S, H), generator=g, device=device)
+    A = (-0.01 * torch.linspace(1.0, 4.0, H, device=device)).expand(
+        Bb, H).contiguous()
+    B = 1.0 + 0.01 * torch.randn((Bb, S, N), generator=g, device=device)
+    C = 1.0 + 0.01 * torch.randn((Bb, S, N), generator=g, device=device)
+    return x, dt, A, B, C
+
+
 def phase_ssd_kernel(torch, device):
-    """B5 against its plain version at the serve shape, at a padded S and
-    at the decay extremes."""
+    """B5 against its plain version at the serve shape (contiguous, and as
+    views of a conv output), at a padded S, at the decay extremes and on a
+    cancelling input."""
+    from repro_torch import kernels as K
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_chunked
+    from repro_torch.kernels.ssd_scan.kernel import SCAN, _library
     from repro_torch.kernels.ssd_scan.ops import pad_to_chunk
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
 
@@ -1144,26 +1177,62 @@ def phase_ssd_kernel(torch, device):
     ops = ssd_operands(torch, device, Bb, S, H, P, N)
     run = lambda: ssd_scan_chunked(*ops, Q)                  # noqa: E731
     plain = lambda: ssd_scan_plain(*ops, Q)                  # noqa: E731
-    out, out_p = run(), plain()
+    K.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    if K.launch_counts() != {SCAN: 1}:
+        raise AssertionError(f"B5: counted {K.launch_counts()} for one call")
+    out_p = plain()
     torch.cuda.synchronize()
     ey, ry, sy, eh, rh, sh = ssd_check(torch, "B5/serve", out, out_p, run)
-    del out, out_p
+    ms = cuda_ms(run, 20)
+    plain_ms = cuda_ms(plain, 5)
     # bytes: x, dt, A, B, C once, y and h once.  Operations (multiply-adds
     # count 2), the least the function needs: C.B^T's lower triangle once
     # per row (the heads share B and C), per head the triangle times xdt,
-    # C.h and the state update
+    # C.h and the state update.  The kernel's route: three TF32 products
+    # for each product on the tensor cores
     nc = S // Q
     n_bytes = 4 * (2 * Bb * S * H * P + Bb * S * H + Bb * H + 2 * Bb * S * N
                    + Bb * H * N * P)
     n_flops = (Bb * nc * Q * (Q + 1) * N
                + Bb * H * nc * (Q * (Q + 1) * P + 4 * Q * N * P))
-    results = {}
-    time_pass(torch, results, ("B5", "serve"),
-              f"B5 Bb={Bb} S={S} H={H} P={P} N={N} chunk={Q}", run, plain,
-              ey, n_bytes, n_flops,
-              f" ({n_flops / 1e9:.2f} GFLOP; y max rel {ry:.3e}, max|y| "
-              f"{sy:.3e}; h max abs {eh:.3e} rel {rh:.3e}, max|h| {sh:.3e}; "
-              f"within {TOL_SSD} of max|plain|, bitwise repeatable)")
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    simt_ms = max(t_bytes, n_flops / F32_FLOP_PER_S * 1e3)
+    tc_ms = max(t_bytes, 3 * n_flops / TF32_FLOP_PER_S * 1e3)
+    log(f"[kernels] B5 Bb={Bb} S={S} H={H} P={P} N={N} chunk={Q}: kernel "
+        f"{ms:.4f} ms ({_library().ssd_launches()} device launches a call), "
+        f"plain {plain_ms:.4f} ms; bound {tc_ms:.4f} ms on the tensor cores "
+        f"in split TF32 (3 x {n_flops / 1e9:.2f} GFLOP of TF32), "
+        f"{tc_ms / ms:.1%} of it; {simt_ms:.4f} ms in f32 SIMT, "
+        f"{simt_ms / ms:.1%} of it; bytes {n_bytes / 1e9:.3f} GB, "
+        f"{t_bytes:.4f} ms; y max abs err {ey:.3e} (rel {ry:.3e}, max|y| "
+        f"{sy:.3e}), h {eh:.3e} (rel {rh:.3e}, max|h| {sh:.3e}); within "
+        f"{TOL_SSD} of max|plain|, bitwise repeatable")
+    results = {("B5", "serve"): {"ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": tc_ms, "bound_by": "operations",
+                                 "max_abs_err": ey}}
+    del out, out_p
+
+    # the model's layout: x, B and C as views of one conv output
+    g = torch.Generator(device=device).manual_seed(6)
+    xbc = torch.randn((Bb, S, H * P + 2 * N), generator=g, device=device)
+    xv = xbc[..., :H * P].reshape(Bb, S, H, P)
+    Bv, Cv = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dts, As = ops[1], ops[2]
+    strided = lambda: ssd_scan(xv, dts, As, Bv[:, :, None],  # noqa: E731
+                               Cv[:, :, None], chunk=Q)
+    out = strided()
+    ref = ssd_scan_chunked(xv.contiguous(), dts, As, Bv.contiguous(),
+                           Cv.contiguous(), Q)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+        raise AssertionError("B5: strided operands differ from contiguous")
+    log(f"[kernels] B5 strided (x, B, C views of a (Bb, S, {H * P + 2 * N}) "
+        f"conv output, read in place): {cuda_ms(strided, 20):.4f} ms, "
+        f"bitwise equal to contiguous copies")
+    del xbc, xv, Bv, Cv, out, ref
+
     xs, dts, _, Bs, Cs = (t[:, :SSD_PAD_S] if t.ndim > 2 else t for t in ops)
     out = ssd_scan(xs, dts, ops[2], Bs[:, :, None], Cs[:, :, None], chunk=Q)
     xp, dtp, Bp, Cp = pad_to_chunk(xs, dts, Bs, Cs, Q)
@@ -1184,6 +1253,17 @@ def phase_ssd_kernel(torch, device):
                                    ssd_scan_plain(*ext, 32))
     log(f"[kernels] B5 decay extremes (A -100 and -1e-3, dt 1e-4): finite, "
         f"y max abs err {ey:.3e}, h {eh:.3e}")
+
+    ops = ssd_cancelling(torch, device, Bb, 512, H, P, N)
+    out, out_p = ssd_scan_chunked(*ops, Q), ssd_scan_plain(*ops, Q)
+    torch.cuda.synchronize()
+    ssd_check(torch, "B5/cancelling", out, out_p)
+    split = [float((a - b).abs().max()) / float(b.abs().max())
+             for a, b in zip(out, out_p)]
+    log(f"[kernels] B5 cancelling sums (S=512, max|y| "
+        f"{float(out_p[0].abs().max()):.3e}): split TF32 y, h max abs err "
+        f"{split[0]:.3e}, {split[1]:.3e} of max|plain| (gate {TOL_SSD})")
+    del ops, out, out_p
     torch.cuda.empty_cache()
     return results
 
@@ -1337,7 +1417,8 @@ def phase_serve(torch, device):
     serve_timings(torch, cfg, params, batch)
     with torch.no_grad():
         profile_step(torch, "serve-profile", lambda: M.prefill(
-            cfg, params, batch, cache_len=cache_len), what="one prefill")
+            cfg, params, batch, cache_len=cache_len), what="one prefill",
+            group=("B5 (ssd_scan)", SSD_KERNEL_NAMES))
         _, cache = M.prefill(cfg, params, batch, cache_len=cache_len)
         tok = tokens[:, -1]
         profile_step(torch, "serve-profile", lambda: M.decode_step(

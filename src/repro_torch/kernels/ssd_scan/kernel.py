@@ -4,12 +4,14 @@ Ports ``ssd_scan_pallas`` (src/repro/kernels/ssd_scan/kernel.py:85) ->
 :func:`ssd_scan_chunked` (B5).  The source holds its bound and design
 notes.
 
-The wrapper checks shapes, dtype, device and contiguity.  For CPU tensors
-it returns the plain-torch version (ref.py); for CUDA tensors it launches
-the kernel on the current stream, raises if the launch failed, and counts
-the launch (kernels.count_launch); any other device raises.  The reference
-has no gradient of this kernel, so on CUDA an input that requires grad
-(with grad enabled) raises NotImplementedError: the plain version is never
+The wrapper checks shapes, dtype, device and layout: x, B and C may be
+views at a row stride (:func:`row_strides`), dt and A are contiguous.  For
+CPU tensors it returns the plain-torch version (ref.py); for CUDA tensors
+it allocates the workspace, launches the kernel's three stages on the
+current stream (``lib.ssd_launches()`` device launches), raises if a launch
+failed, and counts one launch per call (kernels.count_launch); any other device raises.  The reference has no
+gradient of this kernel, so on CUDA an input that requires grad (with grad
+enabled) raises NotImplementedError: the plain version is never
 differentiated in the kernel's place.
 """
 from __future__ import annotations
@@ -25,15 +27,17 @@ from .ref import ssd_scan_plain
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "ssd_scan.cu"
 SCAN = "ssd_scan"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
-        lib.ssd_scan.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+        lib.ssd_scan.argtypes = [_P] * 8 + [_I] * 6 + [_L, _L, _P]
         lib.ssd_scan.restype = _I
-        for fn in (lib.ssd_max_chunk, lib.ssd_max_state):
+        lib.ssd_workspace_floats.argtypes = [_I] * 6
+        lib.ssd_workspace_floats.restype = ctypes.c_size_t
+        for fn in (lib.ssd_max_chunk, lib.ssd_max_state, lib.ssd_launches):
             fn.argtypes, fn.restype = [], _I
         lib.ssd_error_string.argtypes = [_I]
         lib.ssd_error_string.restype = ctypes.c_char_p
@@ -63,9 +67,37 @@ def _check_operands(x, dt, A, B, C, chunk):
     return Bb, S, H, P, N
 
 
+def _row_stride(t):
+    """Element stride between the steps (dim 1) of t (Bb, S, *inner) when
+    its inner dims are contiguous and its batch stride is S steps; else
+    None.  Size-1 dims may have any stride."""
+    sizes, strides = t.shape, t.stride()
+    inner = 1
+    for d in range(t.ndim - 1, 1, -1):
+        if sizes[d] > 1 and strides[d] != inner:
+            return None
+        inner *= sizes[d]
+    row = strides[1] if sizes[1] > 1 else (
+        strides[0] if sizes[0] > 1 else inner)
+    if row < inner or (sizes[0] > 1 and strides[0] != sizes[1] * row):
+        return None
+    return row
+
+
+def row_strides(x, B, C):
+    """(x_row, bc_row): the strides at which the kernel reads x (Bb, S, H,
+    P) and B, C (Bb, S, N) — rows of contiguous elements, one stride for B
+    and C — or None when they are not laid out so."""
+    x_row, b_row, c_row = _row_stride(x), _row_stride(B), _row_stride(C)
+    if x_row is None or b_row is None or b_row != c_row:
+        return None
+    return x_row, b_row
+
+
 def ssd_scan_chunked(x, dt, A, B, C, chunk: int):
     """B5.  x (Bb, S, H, P), dt (Bb, S, H), A (Bb, H), B/C (Bb, S, N) — the
-    heads of a row share B and C — all f32; S % chunk == 0.
+    heads of a row share B and C — all f32; S % chunk == 0.  On CUDA, x, B
+    and C may be views at a row stride (:func:`row_strides`).
 
     Returns (y (Bb, S, H, P), h_final (Bb, H, N, P)) f32, reproducible run
     to run (one writer per output, no atomics)."""
@@ -86,19 +118,24 @@ def ssd_scan_chunked(x, dt, A, B, C, chunk: int):
             "ssd_scan has no backward (the reference has none either: it "
             "trains by autodiff of the jnp chunked form) — SSM training is "
             "ROADMAP.md queue A, item 9")
-    if not all(t.is_contiguous() for t in (x, dt, A, B, C)):
-        raise ValueError("kernel operands must be contiguous")
+    strides = row_strides(x, B, C)
+    if strides is None or not (dt.is_contiguous() and A.is_contiguous()):
+        raise ValueError("kernel operands must be contiguous (x, B and C: "
+                         "contiguous rows at one stride for B and C)")
     lib = _library()
     if chunk > lib.ssd_max_chunk() or N > lib.ssd_max_state():
         raise ValueError(f"chunk={chunk} / N={N} exceed the kernel's "
                          f"{lib.ssd_max_chunk()} / {lib.ssd_max_state()}")
     with torch.cuda.device(dev):
-        y = torch.empty_like(x)
+        y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=dev)
         h = torch.empty((Bb, H, N, P), dtype=torch.float32, device=dev)
+        work = torch.empty(lib.ssd_workspace_floats(Bb, S, H, P, N, chunk),
+                           dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ssd_scan(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                           B.data_ptr(), C.data_ptr(), y.data_ptr(),
-                          h.data_ptr(), Bb, S, H, P, N, chunk, stream)
+                          h.data_ptr(), work.data_ptr(), Bb, S, H, P, N,
+                          chunk, *strides, stream)
     if rc != 0:
         raise RuntimeError(
             f"{SCAN} launch failed: {lib.ssd_error_string(rc).decode()}")

@@ -3,9 +3,13 @@
 :func:`ssd_scan_ref` ports the reference's oracle, the sequential
 recurrence (``kernels/ssd_scan/ref.py:8``, which delegates to
 ``models/ssm.py:130 ssd_reference``).  :func:`ssd_scan_plain` is the
-chunked form with the kernel's own dataflow and clips, in the kernel's
-operand layout: what the wrapper runs for CPU tensors and what
-chip_smoke.py holds the kernel against on the card.
+chunked form in the kernel's operand layout, its clips and its stages —
+:func:`ssd_chunk_prep`, :func:`ssd_chunk_states`, :func:`ssd_state_passing`
+(the kernel fuses these two: one launch walks the chunks with the state in
+its accumulators), :func:`ssd_chunk_output` — so the CPU tests hold the
+kernel's decomposition itself against the reference: what the wrapper runs
+for CPU tensors and what chip_smoke.py holds the kernel against on the
+card.
 """
 from __future__ import annotations
 
@@ -37,38 +41,69 @@ def _decay(v):
     return torch.exp(torch.clamp(v, CLIP, 0.0))
 
 
+def ssd_chunk_prep(dt, A, B, C, chunk: int):
+    """Stage (a), per (row, chunk): the cumulative log-decay of every head,
+    L (Bb, nc, Q, H), and C·Bᵀ (Bb, nc, Q, Q), once for all the heads."""
+    Bb, S, H = dt.shape
+    nc = S // chunk
+    lcum = torch.cumsum(dt.reshape(Bb, nc, chunk, H) * A[:, None, None, :],
+                        dim=2)
+    cb = torch.einsum("bcin,bcjn->bcij", C.reshape(Bb, nc, chunk, -1),
+                      B.reshape(Bb, nc, chunk, -1))
+    return lcum, cb
+
+
+def ssd_chunk_states(xdt, B, lcum):
+    """Stage (b), per (row, chunk, head): the chunk state S_c = (B ∘
+    exp(L_Q − L))ᵀ·(x·dt), (Bb, nc, H, N, P); xdt (Bb, nc, Q, H, P)."""
+    Bb, nc, Q, H = lcum.shape
+    w = _decay(lcum[:, :, -1:] - lcum)                   # (Bb,nc,Q,H)
+    bw = B.reshape(Bb, nc, Q, 1, -1) * w[..., None]      # (Bb,nc,Q,H,N)
+    return torch.einsum("bcjhn,bcjhp->bchnp", bw, xdt)
+
+
+def ssd_state_passing(states, lcum):
+    """Stage (c), per (row, head), the one serial step: h_c = exp(L_Q of
+    chunk c)·h_{c−1} + S_c over the chunks, elementwise.  Returns (h_prev
+    (Bb, nc, H, N, P), the state before each chunk, and the final h)."""
+    dec = _decay(lcum[:, :, -1])                         # (Bb,nc,H)
+    h = torch.zeros_like(states[:, 0])
+    prev = []
+    for c in range(states.shape[1]):
+        prev.append(h)
+        h = dec[:, c, :, None, None] * h + states[:, c]
+    return torch.stack(prev, dim=1), h
+
+
+def ssd_chunk_output(xdt, C, lcum, cb, h_prev):
+    """Stage (d), per (row, chunk, head): y = ((C·Bᵀ) ∘ exp(L_i − L_j) ∘
+    tril)·(x·dt) + exp(L_i)·C·h_prev.  Returns y (Bb, S, H, P)."""
+    Bb, nc, Q, H = lcum.shape
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=lcum.device).tril()
+    li = lcum.transpose(2, 3)                            # (Bb,nc,H,Q)
+    gamma = (cb[:, :, None] * _decay(li[..., :, None] - li[..., None, :])
+             * tri)                                      # (Bb,nc,H,Q,Q)
+    y = torch.einsum("bchij,bcjhp->bcihp", gamma, xdt)
+    y = y + _decay(lcum)[..., None] * torch.einsum(
+        "bcin,bchnp->bcihp", C.reshape(Bb, nc, Q, -1), h_prev)
+    return y.reshape(Bb, nc * Q, H, -1)
+
+
 def ssd_scan_plain(x, dt, A, B, C, chunk: int):
     """The chunked scan in the kernel's layout: x (Bb,S,H,P), dt (Bb,S,H),
     A (Bb,H) (one decay rate per batch row and head), B/C (Bb,S,N) shared
     by the heads (G = 1, never broadcast); S % chunk == 0.
 
-    Per chunk, as ``ssd_scan_pallas`` computes it: the cumulative log-decay
-    L, the intra-chunk term ((C·Bᵀ) ∘ exp(L_i − L_j) ∘ tril)·(x·dt), plus
-    exp(L_i)·C·h_prev, then h ← exp(L_tot)·h + (B ∘ exp(L_tot − L))ᵀ·(x·dt).
-    Returns (y (Bb,S,H,P), h_final (Bb,H,N,P))."""
+    What ``ssd_scan_pallas`` computes per chunk, in the kernel's
+    stages: L and C·Bᵀ per (row, chunk); the chunk states; the state
+    passing; the chunk output.  Returns (y (Bb,S,H,P), h_final
+    (Bb,H,N,P))."""
     Bb, S, H, P = x.shape
-    N = B.shape[-1]
     if S % chunk:
         raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
-    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
-    h = x.new_zeros((Bb, H, N, P))
-    ys = []
-    for s0 in range(0, S, chunk):
-        sl = slice(s0, s0 + chunk)
-        dtc = dt[:, sl]                                      # (Bb,Q,H)
-        Bc, Cc = B[:, sl], C[:, sl]                          # (Bb,Q,N)
-        lcum = torch.cumsum(dtc * A[:, None, :], dim=1)      # L_i (Bb,Q,H)
-        ltot = lcum[:, -1]                                   # (Bb,H)
-        xdt = x[:, sl] * dtc[..., None]                      # (Bb,Q,H,P)
-        li = lcum.transpose(1, 2)                            # (Bb,H,Q)
-        cb = torch.einsum("bin,bjn->bij", Cc, Bc)            # (Bb,Q,Q)
-        gamma = (cb[:, None] * _decay(li[..., :, None] - li[..., None, :])
-                 * tri)                                      # (Bb,H,Q,Q)
-        y = torch.einsum("bhij,bjhp->bihp", gamma, xdt)
-        y = y + _decay(lcum)[..., None] * torch.einsum(
-            "bin,bhnp->bihp", Cc, h)
-        bw = Bc[:, :, None, :] * _decay(ltot[:, None] - lcum)[..., None]
-        s_c = torch.einsum("bjhn,bjhp->bhnp", bw, xdt)       # (Bb,H,N,P)
-        h = _decay(ltot)[..., None, None] * h + s_c
-        ys.append(y)
-    return torch.cat(ys, dim=1), h
+    nc = S // chunk
+    lcum, cb = ssd_chunk_prep(dt, A, B, C, chunk)
+    xdt = (x.reshape(Bb, nc, chunk, H, P)
+           * dt.reshape(Bb, nc, chunk, H)[..., None])
+    h_prev, h = ssd_state_passing(ssd_chunk_states(xdt, B, lcum), lcum)
+    return ssd_chunk_output(xdt, C, lcum, cb, h_prev), h

@@ -14,8 +14,8 @@ wherever the two best scores do not nearly tie (top-2 f64 margin above
 1e-5 (|best| + 1)); counts exactly; sums within 1e-5 of an f64 sum
 relative to the f64 sum of |x|.  B5 (SSD scan): y and h within 1e-4 of
 the largest magnitude of the plain version's (f32 sums of up to Q·N terms,
-which cancel, in another order; the cumulative decay a warp prefix sum),
-bitwise repeatable.
+which cancel, in another order; products in split TF32 on the tensor
+cores; the cumulative decay a warp prefix sum), bitwise repeatable.
 """
 import pathlib
 
@@ -395,6 +395,71 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, Bb, S, H, P, N, chunk):
     for _ in range(2):
         y2, h2 = ssd_scan_chunked(*ops, chunk)
         assert torch.equal(y2, y) and torch.equal(h2, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bb,S,H,P,N,chunk", [
+    (1, 96, 3, 8, 5, 96),            # Q 96, N 5: neither a tile multiple
+    (1, 64, 2, 160, 16, 8),          # Q 8, P 160: a 32-wide last P-tile
+    (2, 96, 2, 5, 7, 32)])           # P 5, N 7: 4-byte copies
+def test_cuda_ssd_scan_ragged_tensor_core_tiles(cuda_device, Bb, S, H, P, N,
+                                                chunk):
+    """Q, N and P off the 16 x 8 x 8 tensor-core tiles: padded with zeros
+    in shared memory, never in device memory."""
+    ops = ssd_operands(Bb, S, H, P, N, cuda_device, seed=S + N)
+    y, h = ssd_scan_chunked(*ops, chunk)
+    yp, hp = ssd_scan_plain(*ops, chunk)
+    assert_near(y, yp)
+    assert_near(h, hp)
+    y2, h2 = ssd_scan_chunked(*ops, chunk)
+    assert torch.equal(y2, y) and torch.equal(h2, h)
+
+
+def cancelling_operands(Bb, S, H, P, N, device, seed=0):
+    """x alternating in sign along S over B and C that share a large
+    constant component plus small noise, dt near constant and slow decay:
+    y is ~1% of its terms, so products that keep only TF32's ~3 digits miss
+    the 1e-4 gate."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    sign = (-1.0) ** torch.arange(S, device=device)
+    x = sign[None, :, None, None] * (1 + 0.1 * torch.randn(
+        (Bb, S, H, P), generator=g, device=device))
+    dt = 0.05 + 0.001 * torch.rand((Bb, S, H), generator=g, device=device)
+    A = (-0.01 * torch.linspace(1.0, 4.0, H, device=device)).expand(
+        Bb, H).contiguous()
+    B = 1.0 + 0.01 * torch.randn((Bb, S, N), generator=g, device=device)
+    C = 1.0 + 0.01 * torch.randn((Bb, S, N), generator=g, device=device)
+    return x, dt, A, B, C
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_keeps_f32_accuracy_where_sums_cancel(cuda_device):
+    ops = cancelling_operands(4, 512, 32, 64, 128, cuda_device)
+    y, h = ssd_scan_chunked(*ops, 128)
+    yp, hp = ssd_scan_plain(*ops, 128)
+    assert_near(y, yp)
+    assert_near(h, hp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])     # 1: rows off 16 bytes
+def test_cuda_ssd_scan_reads_the_conv_output_in_place(cuda_device, offset):
+    """x, B and C as views of the model's conv output: the kernel reads them
+    at their row stride (4-byte copies where a row is off 16 bytes), and
+    gives the contiguous operands' y and h bitwise."""
+    Bb, S, H, P, N = 2, 256, 4, 64, 32
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    xbc = torch.randn((Bb, S, offset + H * P + 2 * N), generator=g,
+                      device=cuda_device)[..., offset:]
+    x = xbc[..., :H * P].reshape(Bb, S, H, P)
+    B, C = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    _, dt, A, _, _ = ssd_operands(Bb, S, H, P, N, cuda_device)
+    y, h = ssd_scan_chunked(x, dt, A, B, C, 64)
+    yc, hc = ssd_scan_chunked(x.contiguous(), dt, A, B.contiguous(),
+                              C.contiguous(), 64)
+    assert torch.equal(y, yc) and torch.equal(h, hc)
+    ys, hs = ssd_scan(x, dt, A, B[:, :, None], C[:, :, None], chunk=64)
+    assert torch.equal(ys, yc) and torch.equal(hs, hc)
 
 
 @pytest.mark.cuda
