@@ -30,10 +30,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      replica at P=1 and P=4 against use_fused=False, counters zeroed
      before and read after — B3r/B3a launched;
   8. [kernels] B4 (kmeans_assign) at the BATCH shape (M=10^8, K=D=10),
-     the round shape (W=64, b=500) and the TPU kernel's envelope (M=2^20,
-     K=1024, D=128): idx equal off near-ties, counts exact, sums within
-     rtol 1e-5 of f64, bitwise repeatable; its counts at M=2^25+3; B6r/B6a
-     on one flattened smollm-135m replica, gate open and shut;
+     the round shape (W=64, b=500), Fig. 7's largest k (M=10^7, K=100,
+     D=10) and the TPU kernel's envelope (M=2^20, K=1024, D=128): idx
+     equal off near-ties, counts exact, sums within rtol 1e-5 of f64,
+     bitwise repeatable, which of B4's two kernels the shape takes, and at
+     the round shape the device time of its two launches from the
+     profiler; its counts at M=2^25+3; B6r/B6a on one flattened
+     smollm-135m replica, gate open and shut;
   9. [parzen] the B6 entry point parzen_blend on that replica against the
      plain oracle, counters zeroed before and read after;
  10. [kmeans-check] the round simulator (use_fused False and True) and
@@ -772,6 +775,47 @@ TOL_SUMS_RTOL = 1e-5                 # B4 sums vs an f64 sum, relative to
 TIE_RTOL = 1e-5                      # B4 idx compared where the top-2 f64
 #                                      margin exceeds 1e-5 (|best| + 1)
 COUNT_M = 2**25 + 3                  # B4 counts above 2^24
+B4_KERNELS = ("assign_stream_kernel", "assign_partial_kernel",
+              "finalize_kernel")     # B4's device kernels, by name
+# B4's shapes: (case, W or None for a shared x, M, K, D)
+B4_SHAPES = (("batch", None, KM_M, KM_K, KM_D),    # run_batch's E/M step
+             ("round", KM_W, KM_B, KM_K, KM_D),    # one round's W gradients
+             ("k100", None, 10**7, 100, KM_D),     # Fig. 7's largest k
+             ("envelope", None, 2**20, 1024, 128))  # the TPU's VMEM note
+
+
+def device_ms(torch, run, parts, reps):
+    """Device milliseconds per call of ``run`` (after a warm-up call) summed
+    over the kernels whose names hold one of ``parts``, their device
+    launches per call, and the parts that ran, from a torch.profiler trace
+    of ``reps`` calls; None when the trace holds no such device events."""
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        # a throwaway first launch: after earlier traces in the process the
+        # profiler drops a session's first device event
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and any(part in e.name for part in parts)]
+    if not events:
+        return None
+    ran = tuple(part for part in parts if any(part in e.name for e in events))
+    return (sum(e.time_range.end - e.time_range.start for e in events)
+            / reps / 1e3, len(events) / reps, ran)
+
+
+def b4_kernel_ran(dev):
+    """Which of B4's two kernels a device_ms trace saw run."""
+    if dev is None:
+        return "no kernel traced"
+    return " and ".join(n for n in dev[2] if n != "finalize_kernel")
 
 
 def b4_check(torch, name, x, w, out, out_p, repeat):
@@ -825,9 +869,10 @@ def b4_check(torch, name, x, w, out, out_p, repeat):
 
 
 def phase_kmeans_kernels(torch, device):
-    """B4 at its three shapes (BATCH, round, envelope) and at M = 2^25 + 3,
-    K = 1 (count exactness); B6r/B6a on one flattened smollm-135m replica
-    with the gate open and shut — each against its plain version."""
+    """B4 at its four shapes (BATCH, round, Fig. 7's k = 100, envelope) and
+    at M = 2^25 + 3, K = 1 (count exactness); B6r/B6a on one flattened
+    smollm-135m replica with the gate open and shut — each against its
+    plain version."""
     from repro_torch.kernels.kmeans_assign.kernel import kmeans_assign_w
     from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_plain
     from repro_torch.kernels.parzen_blend.kernel import (parzen_apply,
@@ -838,10 +883,7 @@ def phase_kmeans_kernels(torch, device):
 
     results = {}
     g = torch.Generator(device=device).manual_seed(3)
-    shapes = (("batch", None, KM_M, KM_K, KM_D),    # run_batch's E/M step
-              ("round", KM_W, KM_B, KM_K, KM_D),    # one round's W gradients
-              ("envelope", None, 2**20, 1024, 128))  # the TPU's VMEM note
-    for case, wn, m, k, d in shapes:
+    for case, wn, m, k, d in B4_SHAPES:
         x = torch.randn(((wn,) if wn else ()) + (m, d), generator=g,
                         device=device)
         w = torch.randn((wn or 1, k, d), generator=g, device=device)
@@ -853,21 +895,38 @@ def phase_kmeans_kernels(torch, device):
                                     run)
         del out_p
         nw = wn or 1
+        # the kernel this shape ran, as the profiler saw it; at the round
+        # shape also the device time of B4's two launches alone, since
+        # back-to-back calls time the wrapper's host side too
+        reps = 20 if case == "round" else 3
+        dev = device_ms(torch, run, B4_KERNELS, reps)
         time_pass(torch, results, ("B4", case),
                   f"B4 {case:8s} W={nw} M={m} K={k} D={d}", run, plain, err,
                   x.numel() * 4 + nw * m * 4 + w.numel() * 4
                   + nw * k * (d + 1) * 4, 2 * nw * m * k * d,
                   f" (idx flips {flips} among {near} near ties, sums within "
-                  f"{TOL_SUMS_RTOL} of f64, bitwise repeatable)")
+                  f"{TOL_SUMS_RTOL} of f64, bitwise repeatable; ran "
+                  f"{b4_kernel_ran(dev)})")
+        if case == "round":
+            log(f"[kernels] B4 round: "
+                + (f"{dev[0]:.4f} ms of device time a call ({dev[1]:.2f} "
+                   f"device launches: {' and '.join(dev[2])}, "
+                   f"torch.profiler over {reps} calls)" if dev else
+                   "device time not measured (no device events traced)")
+                + f" against {results[('B4', case)]['ms']:.4f} ms a call "
+                f"by CUDA events over back-to-back calls")
         del x, w, out
         torch.cuda.empty_cache()
     x = torch.randn((COUNT_M, 4), generator=g, device=device)
-    counts = kmeans_assign_w(x, torch.zeros((1, 1, 4), device=device))[2]
+    w = torch.zeros((1, 1, 4), device=device)
+    counts = kmeans_assign_w(x, w)[2]
     torch.cuda.synchronize()
     if float(counts[0]) != float(torch.tensor(COUNT_M, dtype=torch.float32)):
         raise AssertionError(f"B4 counts: {float(counts[0])} for M={COUNT_M}")
+    dev = device_ms(torch, lambda: kmeans_assign_w(x, w), B4_KERNELS, 3)
     log(f"[kernels] B4 counts at M={COUNT_M}, K=1: {float(counts[0]):.1f} "
-        f"== float32(M) (an f32 sum of ones would stop at 16777216)")
+        f"== float32(M) (an f32 sum of ones would stop at 16777216; "
+        f"ran {b4_kernel_ran(dev)})")
     del x
     torch.cuda.empty_cache()
 
@@ -1072,7 +1131,8 @@ def phase_kmeans(torch, device):
     c = K.launch_counts()
     errs_b = errs_b.cpu()
     if not bool(torch.isfinite(errs_b).all()) or \
-            not errs_b[-1] < errs_b[0] or c.get(ASSIGN, 0) == 0:
+            not errs_b[-1] < errs_b[0] or \
+            c.get(ASSIGN, 0) != 2 * KM_BATCH_ITERS:
         raise AssertionError(f"kmeans BATCH: errors {errs_b}, launches {c}")
     log(f"[kmeans] run_batch {KM_BATCH_ITERS} iterations over m={KM_M}: "
         f"{secs / KM_BATCH_ITERS * 1e3:.3f} ms per iteration (host clock), "

@@ -2,7 +2,8 @@
 
 Ports ``kmeans_assign_pallas`` (src/repro/kernels/kmeans_assign/kernel.py:57)
 -> :func:`kmeans_assign_w` (B4).  The source holds its bound and design
-notes.
+notes: one launch runs one of two kernels, picked from (K, D) alone, then a
+fixed-order finalize.
 
 The wrapper checks device, dtype, shape and contiguity.  For CPU tensors it
 returns the plain-torch version (ref.py); for CUDA tensors it launches the

@@ -260,7 +260,20 @@ def check_b4(x, w, out, out_p):
 @pytest.mark.parametrize("wn,shared,m,k,d", [
     (1, True, 1000, 10, 10), (1, True, 300, 3, 5), (1, True, 2048, 256, 64),
     (1, True, 777, 1024, 128), (1, True, 500, 40, 200),
-    (8, False, 64, 8, 6), (6, True, 999, 7, 17), (64, False, 500, 10, 10)])
+    (8, False, 64, 8, 6), (6, True, 999, 7, 17), (64, False, 500, 10, 10),
+    # the streamed kernel at the paper's and Fig. 7's shapes
+    (1, True, 10**6, 10, 10), (1, True, 10**6, 50, 10),
+    (1, True, 10**6, 100, 10),
+    # just under its limit (K * D = 1024, D = 16) and just over it
+    (1, True, 5000, 64, 16), (1, True, 5000, 65, 16), (1, True, 5000, 10, 17),
+    # worker stride 3330 floats: worker 1's rows are not 16-byte aligned,
+    # and each worker's one tile (13320 bytes) is not a multiple of 16
+    (3, False, 333, 10, 10),
+    # worker stride 10250 floats: worker 1's rows are not 16-byte aligned,
+    # but its first two tiles are full 512-row tiles (20480 bytes)
+    (3, False, 1025, 10, 10),
+    # a ragged last tile (161 rows of 40 bytes) at a large M
+    (1, True, 100001, 10, 10)])
 def test_cuda_kmeans_assign_matches_plain(cuda_device, wn, shared, m, k, d):
     g = torch.Generator(device=cuda_device).manual_seed(m + k + d)
     x = torch.randn(((m, d) if shared else (wn, m, d)), generator=g,
@@ -291,7 +304,52 @@ def test_cuda_kmeans_assign_counts_are_exact_above_2_24(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,d", [(10**6, 10, 10), (2**16, 1024, 128)])
+def test_cuda_kmeans_assign_routes_by_shape(cuda_device):
+    """The streamed kernel runs at D <= 16 with K * D <= 1024 (the K-Means
+    path's shapes), the tiled kernel at every other shape: the kernel names
+    a profiler trace of three calls sees."""
+    kernels = ("assign_stream_kernel", "assign_partial_kernel")
+    for kernel, shapes in (
+            ("assign_stream_kernel",
+             ((10, 10), (100, 10), (64, 16), (1024, 1), (1, 2))),
+            ("assign_partial_kernel",
+             ((65, 16), (10, 17), (1024, 128), (40, 200)))):
+        for k, d in shapes:
+            x = torch.randn((1000, d), device=cuda_device)
+            w = torch.randn((1, k, d), device=cuda_device)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    kmeans_assign_w(x, w)
+                torch.cuda.synchronize()
+            ran = {n for n in kernels for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and n in e.name}
+            assert ran == {kernel}, (k, d, ran)
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_assign_long_chains_stay_accurate(cuda_device):
+    """10^7 positive samples, all nearest one prototype: every sum is one
+    long accumulation, within 1e-5 of the f64 sum."""
+    m, k, d = 10**7, 10, 10
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.rand((m, d), generator=g, device=cuda_device)
+    w = torch.full((1, k, d), 100.0, device=cuda_device)
+    w[0, 0] = 0.5
+    w[0, 1:] += torch.arange(1, k, device=cuda_device)[:, None]
+    idx, sums, counts = kmeans_assign_w(x, w)
+    assert not bool(idx.any())
+    assert counts.tolist() == [[float(m)] + [0.0] * (k - 1)]
+    s64 = x.double().sum(0)
+    assert bool(((sums[0, 0].double() - s64).abs() <= 1e-5 * s64).all())
+    assert not bool(sums[0, 1:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,d", [(10**6, 10, 10), (2**16, 1024, 128),
+                                   (10**6, 100, 10)])
 def test_cuda_kmeans_assign_is_deterministic(cuda_device, m, k, d):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     x = torch.randn((m, d), generator=g, device=cuda_device)

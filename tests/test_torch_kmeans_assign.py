@@ -24,7 +24,8 @@ from repro_torch.kernels.kmeans_assign.ref import (
 
 SUMS_TOL = {"rtol": 1e-5, "atol": 1e-5}
 SHAPES = [(256, 8, 4), (512, 10, 10), (1000, 17, 7), (256, 128, 100),
-          (300, 5, 3), (2048, 64, 256), (64, 3, 2)]
+          (300, 5, 3), (2048, 64, 256), (64, 3, 2),
+          (512, 10, 50), (512, 10, 100)]          # Fig. 7's k at d = 10
 
 
 def operands(seed, m, d, k, wn=None):
