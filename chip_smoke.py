@@ -20,7 +20,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   4. [main] the pipelined path: ``repro_torch.launch.train`` on full
      smollm-135m, W=4, --pipelined --wire-format int8, launch counters
      zeroed just before and read just after — B1r/B1a every round;
-  5. [breakdown]/[profile] the pieces of one full-size pipelined step;
+  5. [breakdown]/[profile] the pieces of one full-size pipelined step,
+     and its exchange and blend on an elastic state (live = ones);
+     [elastic-check] liveness under churn (worker 2 dead in rounds 1-2)
+     on the reduced model, GPU against CPU: 5 pipelined int8 steps (B1)
+     and 5 pytree use_fused steps (B2), the dead worker's rows bitwise
+     frozen, every round's blend launched, the engine with live = ones
+     bitwise the legacy run; [ckpt] --save of the main path after 3 steps
+     (a temporary file), restored bitwise into a fresh state, --restore
+     to step 5 (B1r/B1a twice); [elastic] that file restored --elastic at
+     W=2 to step 6 (2 join rounds admit nothing, B1r/B1a every round),
+     then W=4 legacy and elastic runs in turns;
   6. [pytree] the pytree engine at full width through make_train_step
      with ASGDConfig(use_fused=True) and the trainer's loop
      (train.run_steps), counters zeroed before and read after — B2r/B2a
@@ -73,6 +83,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -91,6 +102,9 @@ TOL_APPLY_ATOL = 1e-6                # elementwise; the same op order
 TOL_FUSED_ATOL = 1e-5                # fused vs unfused update: sums in
 #                                      other orders, then one division
 START_NOISE = 0.1                    # [check]: per-worker start offsets
+ELASTIC_ROUNDS = 5                   # [elastic-check]
+CHURN_DEAD, CHURN_ROUNDS = 2, (1, 2)  # [elastic-check]: worker 2 is down
+#                                       in rounds 1-2
 
 
 def log(msg):
@@ -408,14 +422,26 @@ def phase_small_check(torch, device):
         f"max |ensemble diff| {err:.3e}")
 
 
+def main_argv(steps, workers=W):
+    """The trainer's flags on the main path: full smollm-135m, pipelined,
+    int8 wire, batch 2, seq 128."""
+    return ["--arch", "smollm-135m", "--workers", str(workers),
+            "--pipelined", "--wire-format", "int8", "--steps", str(steps),
+            "--batch", "2", "--seq", "128", "--log-every", "1"]
+
+
+def steady_median(step_seconds):
+    """Median of a run's step times, the first (warm-up) left out."""
+    steady = sorted(step_seconds[1:])
+    return steady[len(steady) // 2]
+
+
 def phase_main_path(torch):
     from repro_torch import kernels as K
     from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
     from repro_torch.launch import train
 
-    argv = ["--arch", "smollm-135m", "--workers", str(W), "--pipelined",
-            "--wire-format", "int8", "--steps", str(MAIN_STEPS), "--batch",
-            "2", "--seq", "128", "--log-every", "1"]
+    argv = main_argv(MAIN_STEPS)
     log(f"[main] python -m repro_torch.launch.train {' '.join(argv)}")
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -434,8 +460,7 @@ def phase_main_path(torch):
     if tuple(wq.shape) != wq_shape() or not bool(torch.isfinite(wq).all()):
         raise AssertionError(f"main path: final average wq "
                              f"{tuple(wq.shape)} not finite/shaped")
-    steady = sorted(out["step_seconds"][1:])
-    median = steady[len(steady) // 2]
+    median = steady_median(out["step_seconds"])
     log(f"[main] launches {counts} over {MAIN_STEPS} steps; step seconds "
         f"{[round(s, 4) for s in out['step_seconds']]} (first includes "
         f"warm-up); steady median {median * 1e3:.2f} ms; n_good "
@@ -443,7 +468,321 @@ def phase_main_path(torch):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del out
     torch.cuda.empty_cache()
-    return counts
+    return counts, median
+
+
+def churn_live(torch, t, device):
+    """[elastic-check]'s schedule: worker CHURN_DEAD is down in the rounds
+    CHURN_ROUNDS."""
+    live = torch.ones(W, device=device)
+    if t in CHURN_ROUNDS:
+        live[CHURN_DEAD] = 0.0
+    return live
+
+
+def elastic_run(torch, cfg, step, init, gcfg, dev, schedule):
+    """ELASTIC_ROUNDS steps of ``step`` from ``init(dev, elastic)`` with the
+    same batches and draws on every device.  schedule: None (a legacy,
+    non-elastic state), "ones" or "churn".  Returns (losses, n_good, state
+    leaves on the CPU, whether the dead worker's rows stayed bitwise
+    frozen in every round it was dead)."""
+    from repro_torch.core.gossip import draw_gossip_indices
+    from repro_torch.core.tree import flatten_sorted
+    from repro_torch.launch.train import batch_iterators
+
+    params, gossip = init(dev, schedule is not None)
+    its = batch_iterators(cfg, W, 2, 32, 0)
+    draws = torch.Generator().manual_seed(0)
+    losses, n_good, frozen = [], [], True
+    for t in range(ELASTIC_ROUNDS):
+        tokens = torch.stack([torch.from_numpy(next(it)["tokens"])
+                              for it in its]).to(dev)
+        live = ()
+        if schedule is not None:
+            live = (churn_live(torch, t, dev) if schedule == "churn"
+                    else torch.ones(W, device=dev),)
+        dead = schedule == "churn" and t in CHURN_ROUNDS
+        before = ([x[CHURN_DEAD].clone() for x in flatten_sorted(params)[0]]
+                  if dead else None)
+        params, gossip, _, m = step(params, gossip, 0, {"tokens": tokens},
+                                    *draw_gossip_indices(draws, gcfg), *live)
+        if dead:
+            frozen &= all(torch.equal(a, x[CHURN_DEAD]) for a, x in
+                          zip(before, flatten_sorted(params)[0]))
+        losses.append(float(m["loss"]))
+        n_good.append(float(m["n_good"]))
+    return losses, n_good, [x.cpu() for x in flatten_sorted(params)[0]], \
+        frozen
+
+
+def ones_is_legacy(torch, cfg, init, grad_of, apply, gcfg, dev):
+    """The engine ``apply`` on ``dev`` for ELASTIC_ROUNDS rounds, once on a
+    legacy state and once on an elastic state with live = ones, from the
+    same start, draws and per-round gradients (each taken once at the
+    start state: a forward/backward repeated need not give the same bits,
+    the engine does).  Returns whether states and gates agreed bitwise
+    every round, and the admitted-message counts."""
+    from repro_torch.core.gossip import draw_gossip_indices
+    from repro_torch.core.tree import flatten_sorted
+    from repro_torch.launch.train import batch_iterators
+
+    start = init(dev, False)[0]
+    its = batch_iterators(cfg, W, 2, 32, 0)
+    grads = [grad_of(start, {"tokens": torch.stack([
+        torch.from_numpy(next(it)["tokens"]) for it in its]).to(dev)})
+        for _ in range(ELASTIC_ROUNDS)]
+    runs = []
+    for elastic in (False, True):
+        params, gossip = init(dev, elastic)
+        draws = torch.Generator().manual_seed(0)
+        kw = {"live": torch.ones(W, device=dev)} if elastic else {}
+        out = []
+        for g in grads:
+            params, gossip, m = apply(params, g, gossip,
+                                      *draw_gossip_indices(draws, gcfg),
+                                      **kw)
+            out.append((flatten_sorted(params)[0], m["gate"]))
+        runs.append(out)
+    same = all(torch.equal(ga, gb) and all(
+        torch.equal(a, b) for a, b in zip(la, lb))
+        for (la, ga), (lb, gb) in zip(*runs))
+    return same, [float(g.sum()) for _, g in runs[1]]
+
+
+def phase_elastic_check(torch, device):
+    """Elastic liveness on the reduced model, GPU against CPU: the pipelined
+    int8 engine (B1r/B1a) and the pytree engine with use_fused (B2r/B2a),
+    W=4, ELASTIC_ROUNDS train steps from distinct worker starts under the
+    churn schedule, the same batches and draws on both devices: losses
+    within rel 1e-4, n_good equal and not all 0, states within atol 1e-4;
+    on the GPU the dead worker's rows bitwise frozen while it is dead, the
+    engine's blend kernels launched every round (counters zeroed just
+    before the churn run and read just after), and the engine on an
+    elastic state with live = ones bitwise the legacy run
+    (:func:`ones_is_legacy`)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import gossip as G
+    from repro_torch.core.asgd import ASGDConfig
+    from repro_torch.core.packing import pack_spec_w, pack_w
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.gossip_blend.kernel import (APPLY, APPLY_W,
+                                                         REDUCE, REDUCE_W)
+    from repro_torch.launch.steps import (make_train_step,
+                                          packed_loss_and_grad,
+                                          tree_loss_and_grad)
+    from repro_torch.models.model import init_model
+
+    cfg = get_arch("smollm-135m").reduced()
+    starts = worker_starts(torch, init_model(cfg, 0, device="cpu"))
+    pipe_acfg, tree_acfg = ASGDConfig(eps=EPS), ASGDConfig(eps=EPS,
+                                                           use_fused=True)
+    pipe_cfg = G.GossipConfig(shifts=(1, 2), partial_blocks=4, delay=1,
+                              wire_format="int8")
+    spec = pack_spec_w(starts, block_rows=BLOCK_ROWS,
+                       groups=G.leaf_groups(starts, 4), n_groups=4)
+
+    def init_pipelined(dev, elastic):
+        packed = pack_w(starts, spec).to(dev)
+        return packed, G.init_pipelined_gossip_state(
+            packed, pipe_cfg, block_rows=BLOCK_ROWS, elastic=elastic)
+
+    tree_cfg = pytree_gcfg("leaves")
+
+    def init_pytree(dev, elastic):
+        wp = tree_map(lambda x: x.to(dev), starts)
+        return wp, G.init_gossip_state(wp, tree_cfg, elastic=elastic)
+
+    engines = (
+        ("pipelined int8", make_train_step(
+            cfg, pack_spec=spec, gcfg=pipe_cfg, acfg=pipe_acfg,
+            pipelined=True), init_pipelined, pipe_cfg, (REDUCE, APPLY),
+         lambda p, b: packed_loss_and_grad(cfg, p, b, spec)[1],
+         lambda *a, **kw: G.asgd_gossip_apply_pipelined(
+             *a, pipe_cfg, pipe_acfg, spec, **kw)),
+        ("pytree use_fused", make_train_step(
+            cfg, gcfg=tree_cfg, acfg=tree_acfg), init_pytree, tree_cfg,
+         (REDUCE_W, APPLY_W),
+         lambda p, b: tree_loss_and_grad(cfg, p, b)[1],
+         lambda *a, **kw: G.asgd_gossip_apply(*a, tree_cfg, tree_acfg,
+                                              **kw)))
+    for name, step, init, gcfg, kernels, grad_of, apply in engines:
+        cpu = elastic_run(torch, cfg, step, init, gcfg, "cpu", "churn")
+        K.reset_launch_counts()
+        gpu = elastic_run(torch, cfg, step, init, gcfg, device, "churn")
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        for lc, lg in zip(cpu[0], gpu[0]):
+            if abs(lg - lc) > 1e-4 * abs(lc):
+                raise AssertionError(f"elastic check {name}: GPU loss {lg} "
+                                     f"vs CPU {lc}")
+        if gpu[1] != cpu[1]:
+            raise AssertionError(f"elastic check {name}: n_good GPU "
+                                 f"{gpu[1]} vs CPU {cpu[1]}")
+        err = max(float((a - b).abs().max()) for a, b in zip(gpu[2], cpu[2]))
+        if not err <= 1e-4:
+            raise AssertionError(f"elastic check {name}: states differ by "
+                                 f"{err:.3e}")
+        if not gpu[3]:
+            raise AssertionError(f"elastic check {name}: worker "
+                                 f"{CHURN_DEAD}'s rows moved while it was "
+                                 f"dead")
+        for k in kernels:
+            if counts.get(k, 0) != ELASTIC_ROUNDS:
+                raise AssertionError(
+                    f"elastic check {name}: {k} launched "
+                    f"{counts.get(k, 0)} times in {ELASTIC_ROUNDS} gossip "
+                    f"rounds: {counts}")
+        check_admitted(f"elastic check {name}", gpu[1])
+        same, ones_good = ones_is_legacy(torch, cfg, init, grad_of, apply,
+                                         gcfg, device)
+        if not same:
+            raise AssertionError(f"elastic check {name}: live = ones is not "
+                                 f"bitwise the legacy run")
+        check_admitted(f"elastic check {name} (live = ones)", ones_good)
+        log(f"[elastic-check] reduced smollm, {ELASTIC_ROUNDS} {name} "
+            f"steps, worker {CHURN_DEAD} dead in rounds {CHURN_ROUNDS}: GPU "
+            f"vs CPU losses {[round(x, 6) for x in gpu[0]]} vs "
+            f"{[round(x, 6) for x in cpu[0]]}, n_good {gpu[1]}, max |state "
+            f"diff| {err:.3e}; dead rows bitwise frozen; launches {counts}; "
+            f"engine with live = ones bitwise the legacy run (n_good "
+            f"{ones_good})")
+
+
+def phase_ckpt(torch, path):
+    """--save on the main path (3 steps), the file restored into a fresh
+    state of the same shape (packed ensemble, int8 FIFO and its scales
+    bitwise), then --restore to 5 steps: B1r/B1a twice each (counters
+    zeroed just before and read just after).  Prints the file size, the
+    save and restore seconds and the host's peak RSS."""
+    import os
+    import resource
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import load_checkpoint_packed
+    from repro_torch.core import gossip as G
+    from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
+    from repro_torch.launch import train
+
+    argv = main_argv(3) + ["--save", path]
+    log(f"[ckpt] python -m repro_torch.launch.train {' '.join(argv)}")
+    peak_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    out = train.main(argv)
+    size, t_save = os.path.getsize(path), out["save_seconds"]
+    saved, spec = out["state"], out["spec"]
+    like = {"params": torch.zeros_like(saved["params"]),
+            "gossip": G.init_pipelined_gossip_state(
+                saved["params"], train.gossip_config(W, wire_format="int8"),
+                block_rows=BLOCK_ROWS), "opt": 0, "step": 0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = load_checkpoint_packed(path, like, spec)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    g, g0 = back["gossip"], saved["gossip"]
+    same = (torch.equal(back["params"], saved["params"])
+            and back["step"] == saved["step"] == 3
+            and (g.buf_idx, g.step) == (g0.buf_idx, g0.step)
+            and all(torch.equal(a, b) for a, b in zip(g.buf, g0.buf))
+            and all(torch.equal(a, b) for a, b in zip(g.buf_scales,
+                                                      g0.buf_scales)))
+    if not same:
+        raise AssertionError("ckpt: the restored state is not bitwise the "
+                             "saved one")
+    del out, saved, like, back, g, g0
+    torch.cuda.empty_cache()
+    argv = main_argv(5) + ["--restore", path]
+    log(f"[ckpt] python -m repro_torch.launch.train {' '.join(argv)}")
+    K.reset_launch_counts()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if len(res["losses"]) != 2 or not all(map(math.isfinite, res["losses"])):
+        raise AssertionError(f"ckpt resume: losses {res['losses']}")
+    for name in (REDUCE, APPLY):
+        if counts.get(name, 0) != 2:
+            raise AssertionError(f"ckpt resume: {name} launched "
+                                 f"{counts.get(name, 0)} times in 2 rounds: "
+                                 f"{counts}")
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    log(f"[ckpt] file {size} bytes ({size / 2**30:.3f} GiB); save "
+        f"{t_save:.3f} s; round trip into a fresh state "
+        f"{t_load:.3f} s (device synced), bitwise: packed ensemble, int8 "
+        f"FIFO, scales, buf_idx, step; resume from step 3: restore "
+        f"{res['restore_seconds']:.3f} s, losses "
+        f"{[round(x, 4) for x in res['losses']]}, launches {counts}; host "
+        f"peak RSS {peak:.2f} GiB ({peak_before:.2f} before the phase)")
+    del res
+    torch.cuda.empty_cache()
+
+
+def phase_elastic(torch, path, main_ms):
+    """--restore of [ckpt]'s W=4 file with --elastic at W=2 to step 6: the
+    first delay + 1 = 2 rounds admit nothing (the join window), B1r/B1a
+    every round (counters zeroed just before and read just after), losses
+    finite, the final average at full width.  Then the main path at W=4
+    from scratch, legacy and elastic (live = ones every step) in turns
+    (legacy, elastic, elastic, legacy), B1r/B1a every round of each: their
+    steady step times beside [main]'s."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
+    from repro_torch.launch import train
+
+    argv = main_argv(6, workers=2) + ["--restore", path, "--elastic"]
+    log(f"[elastic] python -m repro_torch.launch.train {' '.join(argv)}")
+    K.reset_launch_counts()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    rounds = len(res["losses"])
+    if rounds != 3 or not all(map(math.isfinite, res["losses"])):
+        raise AssertionError(f"elastic: losses {res['losses']}")
+    if res["n_good"][:2] != [0.0, 0.0]:
+        raise AssertionError(f"elastic: the join window admitted messages: "
+                             f"n_good {res['n_good']}")
+    for name in (REDUCE, APPLY):
+        if counts.get(name, 0) != rounds:
+            raise AssertionError(f"elastic: {name} launched "
+                                 f"{counts.get(name, 0)} times in {rounds} "
+                                 f"rounds: {counts}")
+    wq = res["params"]["scan"]["pos0"]["attn"]["wq"]
+    if (tuple(wq.shape) != (2,) + wq_shape()[1:]
+            or not bool(torch.isfinite(wq).all())):
+        raise AssertionError(f"elastic: final average wq {tuple(wq.shape)} "
+                             f"not finite/shaped")
+    log(f"[elastic] W 4 -> 2 from step 3: restore "
+        f"{res['restore_seconds']:.3f} s, losses "
+        f"{[round(x, 4) for x in res['losses']]}, n_good {res['n_good']} "
+        f"(join window: rounds 3-4), launches {counts}, final average wq "
+        f"{tuple(wq.shape)}")
+    del res
+    torch.cuda.empty_cache()
+    medians = {"legacy": [], "elastic": []}
+    for run in ("legacy", "elastic", "elastic", "legacy"):
+        argv = main_argv(MAIN_STEPS) + (["--elastic"] if run == "elastic"
+                                        else [])
+        K.reset_launch_counts()
+        res = train.main(argv)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        for name in (REDUCE, APPLY):
+            if counts.get(name, 0) != MAIN_STEPS:
+                raise AssertionError(f"elastic W={W} {run}: {name} launched "
+                                     f"{counts.get(name, 0)} times in "
+                                     f"{MAIN_STEPS} rounds: {counts}")
+        if not all(map(math.isfinite, res["losses"])):
+            raise AssertionError(f"elastic W={W} {run}: losses "
+                                 f"{res['losses']}")
+        medians[run].append(steady_median(res["step_seconds"]) * 1e3)
+        log(f"[elastic] W={W} {run} (train.main {' '.join(argv)}): step "
+            f"seconds {[round(x, 4) for x in res['step_seconds']]}; "
+            f"launches {counts}")
+        del res
+        torch.cuda.empty_cache()
+    log(f"[elastic] W={W}, {MAIN_STEPS} steps each, in turns legacy, "
+        f"elastic, elastic, legacy: steady medians legacy "
+        f"{[round(x, 2) for x in medians['legacy']]} ms, elastic (live = "
+        f"ones) {[round(x, 2) for x in medians['elastic']]} ms; [main] "
+        f"{main_ms * 1e3:.2f} ms")
 
 
 def phase_breakdown(torch, device):
@@ -487,6 +826,20 @@ def phase_breakdown(torch, device):
         f"int8: exchange {t_ex:.3f} ms ({t_ex / total:.1%}), forward+"
         f"backward {t_fb:.3f} ms ({t_fb / total:.1%}), blend "
         f"{t_bl:.3f} ms ({t_bl / total:.1%}); sum {total:.3f} ms")
+    # the same two halves on an elastic state with live = ones: the cost
+    # of the liveness masks
+    ones = torch.ones(W, device=device)
+    elastic = G.PackedGossipState(buf=state.buf, buf_idx=(1, 1), step=2,
+                                  buf_scales=state.buf_scales,
+                                  buf_live=(ones, ones))
+    t_ex_l = cuda_ms(lambda: G.initiate_exchange_packed(
+        packed, 0, 1, gcfg, spec, live=ones), 5)
+    t_bl_l = cuda_ms(lambda: G.consume_exchange_packed(
+        packed, pgrads, elastic, state.buf[1], state.buf_scales[1], 1, gcfg,
+        acfg, spec, sent_live=ones, live=ones), 5)
+    log(f"[breakdown] elastic, live = ones: exchange {t_ex_l:.3f} ms "
+        f"({t_ex_l - t_ex:+.3f}), blend {t_bl_l:.3f} ms "
+        f"({t_bl_l - t_bl:+.3f}) by CUDA events")
 
     # device busy share of one whole train step, from a profiler trace
     step = make_train_step(cfg, pack_spec=spec, gcfg=gcfg, acfg=acfg,
@@ -1544,8 +1897,13 @@ def main() -> int:
     kres.update(phase_batched_kernels(torch, device))
     phase_small_check(torch, device)
     phase_pytree_check(torch, device)
-    counts = phase_main_path(torch)
+    counts, main_s = phase_main_path(torch)
     phase_breakdown(torch, device)
+    phase_elastic_check(torch, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        path = str(pathlib.Path(tmp) / "main.msgpack")
+        phase_ckpt(torch, path)
+        phase_elastic(torch, path, main_s)
     counts.update(phase_pytree(torch, device))
     counts.update(phase_fused_update(torch, device))
     kres.update(phase_kmeans_kernels(torch, device))

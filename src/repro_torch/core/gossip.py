@@ -26,8 +26,17 @@ The staleness FIFO (``PackedGossipState.buf``) is a tuple of D slots,
 oldest first, where the reference stacks a leading depth axis: a push is
 then a tuple shift, not a copy of the whole FIFO.
 
-Not ported yet: elastic per-peer liveness (``live``/``buf_live``,
-ROADMAP.md queue A item 4) and the multi-device transports (item 7).
+Elastic per-peer liveness: every engine takes ``live=``, a (W,) f32 0/1
+device tensor of the workers alive this round, on a state initialized
+with ``elastic=True`` (which carries ``buf_live``, the liveness of each
+buffered payload's rows).  A dead worker's local step is masked (it
+freezes), payloads from or to a dead worker are dropped on the wire (the
+eq.-3 all-zero 'no message'), and both masks fold into the blend's
+existing ``gate_scale`` operand — no kernel changes.  ``live=None`` on a
+non-elastic state is the legacy computation; ``live`` = ones on an
+elastic state is bitwise the same.  No host value is read from ``live``.
+
+Not ported yet: the multi-device transports (ROADMAP.md queue A item 7).
 """
 from __future__ import annotations
 
@@ -133,6 +142,64 @@ def draw_gossip_indices(generator: torch.Generator,
     block_idx = int(torch.randint(cfg.partial_blocks, (),
                                   generator=generator))
     return shift_idx, block_idx
+
+
+# ---------------------------------------------------------------------------
+# per-peer liveness (elastic mode)
+# ---------------------------------------------------------------------------
+
+def roll_live(live, shift_idx: int, cfg: GossipConfig):
+    """Receiver-side validity of this round's payload: worker w's slot is
+    real iff its sender (w - shift) is alive and w itself is — the same
+    ``torch.roll`` as the payload's, so both travel one permutation."""
+    return torch.roll(live, cfg.shifts[shift_idx], dims=0) * live
+
+
+def mask_live_rows(x, live):
+    """Zero the worker rows whose liveness is 0 (an all-zero block is
+    'no message').  ``torch.where``, not a multiply: live rows pass
+    through bitwise and an int8 payload stays int8."""
+    if live is None:
+        return x
+    cond = live.reshape((-1,) + (1,) * (x.ndim - 1)) > 0.0
+    return torch.where(cond, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+def mask_live_tree(tree, live):
+    """:func:`mask_live_rows` over every (W, ...) leaf of a tree."""
+    if live is None:
+        return tree
+    return tree_map(lambda x: mask_live_rows(x, live), tree)
+
+
+def combine_gate_scale(valid, *lives):
+    """Fold the staleness guard (a host float or None) and per-peer
+    liveness vectors into the one ``gate_scale`` operand of the blends;
+    None entries are skipped, all None gives None."""
+    out = valid
+    for lv in lives:
+        if lv is None:
+            continue
+        out = lv if out is None else out * lv
+    return out
+
+
+def _resolve_live(state_is_elastic: bool, live, n_workers: int, device,
+                  engine: str):
+    """This round's liveness: all alive on an elastic state when the
+    caller passes nothing; ``live=`` on a non-elastic state raises (its
+    carried structure has no ``buf_live``)."""
+    if state_is_elastic:
+        if live is None:
+            return torch.ones((n_workers,), dtype=torch.float32,
+                              device=device)
+        return live.to(dtype=torch.float32)
+    if live is not None:
+        raise ValueError(
+            f"{engine}: live= requires a state initialized with "
+            "elastic=True (the carried buf_live mask cannot appear mid-run)")
+    return None
 
 
 def staleness_valid(step: int, cfg: GossipConfig, *, extra: int = 0,
@@ -349,50 +416,77 @@ class GossipState:
       carrier dtype after the wire round-trip.
     buf_idx: which partition index buf holds (host int).
     step: round counter (host int).
+    buf_live: (W,) f32 liveness of buf's worker rows on an elastic state,
+      else None.  Transient: checkpoints drop it.
     """
 
     buf: Any
     buf_idx: int
     step: int
+    buf_live: Any = None
 
 
-def init_gossip_state(params, cfg: GossipConfig) -> GossipState:
+def init_gossip_state(params, cfg: GossipConfig,
+                      elastic: bool = False) -> GossipState:
     """Zero staleness buffer (eq. 3: all-zero == 'no message yet'; the
-    first delayed round is also closed by the staleness guard)."""
+    first delayed round is also closed by the staleness guard).
+    ``elastic=True`` carries ``buf_live`` at zeros: the buffered slot
+    reads as dropped until a real exchange fills it (the join window)."""
     if cfg.partial_mode == "rows":
         buf = tree_map(torch.zeros_like,
                        slice_rows(params, 0, cfg.partial_blocks))
     else:
         buf = tree_map(torch.zeros_like, params)
-    return GossipState(buf=buf, buf_idx=0, step=0)
+    live = None
+    if elastic:
+        live = _worker_zeros(flatten_sorted(params)[0][0])
+    return GossipState(buf=buf, buf_idx=0, step=0, buf_live=live)
 
 
-def _local_round(params, grads, state: GossipState, eps):
-    """Plain local SGD step, buffer untouched, step bumped, zero gates."""
+def _local_round(params, grads, state: GossipState, eps, live=None):
+    """Plain local SGD step (dead workers frozen), buffer untouched, step
+    bumped, zero gates."""
     zero = _worker_zeros(flatten_sorted(params)[0][0])
-    return (local_sgd_apply(params, grads, eps),
+    return (local_sgd_apply(params, mask_live_tree(grads, live), eps),
             dataclasses.replace(state, step=state.step + 1),
             {"gate": zero, "n_good": zero.sum()})
 
 
+def _drop_dead_tree(sent, grads, live, shift_idx: int, cfg: GossipConfig):
+    """(sent, grads, sent_live): this round's payload tree with the blocks
+    of dead senders and receivers dropped on the wire, the dead workers'
+    steps masked (they freeze), and the payload's validity; unchanged,
+    with validity None, when ``live`` is None."""
+    if live is None:
+        return sent, grads, None
+    sent_live = roll_live(live, shift_idx, cfg)
+    return (mask_live_tree(sent, sent_live), mask_live_tree(grads, live),
+            sent_live)
+
+
 def _apply_leaves(params, grads, state: GossipState, shift_idx: int,
-                  block_idx: int, cfg: GossipConfig, acfg: ASGDConfig):
+                  block_idx: int, cfg: GossipConfig, acfg: ASGDConfig,
+                  live=None):
     groups = leaf_groups(params, cfg.partial_blocks)
-    sent = exchange_leaves(params, groups, shift_idx, block_idx, cfg)
+    sent, grads, sent_live = _drop_dead_tree(
+        exchange_leaves(params, groups, shift_idx, block_idx, cfg), grads,
+        live, shift_idx, cfg)
     if cfg.delay == 0:
-        ext, ext_idx, valid = sent, block_idx, None
+        ext, ext_idx, valid, ext_live = sent, block_idx, None, sent_live
     else:
         # single-slot buffer: the staleness is one round whatever
         # cfg.delay says, so the guard's depth is 1
-        ext, ext_idx = state.buf, state.buf_idx
+        ext, ext_idx, ext_live = state.buf, state.buf_idx, state.buf_live
         valid = staleness_valid(state.step, cfg, depth=1)
+    gate_scale = combine_gate_scale(valid, ext_live, live)
     if acfg.use_fused:
         new_params, gate = _fused_blend(params, grads, ext, cfg, acfg,
-                                        groups, ext_idx, gate_scale=valid)
+                                        groups, ext_idx,
+                                        gate_scale=gate_scale)
     else:
         gate = _gossip_gate(params, grads, ext, acfg, groups, ext_idx)
-        if valid is not None:
-            gate = gate * valid
+        if gate_scale is not None:
+            gate = gate * gate_scale
 
         def upd(w, g, e, gi):
             if gi == ext_idx:
@@ -401,36 +495,39 @@ def _apply_leaves(params, grads, state: GossipState, shift_idx: int,
 
         new_params = tree_map(upd, params, grads, ext, groups)
     new_state = GossipState(buf=sent, buf_idx=block_idx,
-                            step=state.step + 1)
+                            step=state.step + 1, buf_live=sent_live)
     return new_params, new_state, {"gate": gate, "n_good": gate.sum()}
 
 
 def _apply_rows(params, grads, state: GossipState, shift_idx: int,
-                block_idx: int, cfg: GossipConfig, acfg: ASGDConfig):
+                block_idx: int, cfg: GossipConfig, acfg: ASGDConfig,
+                live=None):
     p = cfg.partial_blocks
     # the wire round-trip before the roll, as in 'leaves' mode
-    sent = exchange_rows(wire_roundtrip(slice_rows(params, block_idx, p),
-                                        cfg), shift_idx, cfg)
+    sent, grads, sent_live = _drop_dead_tree(
+        exchange_rows(wire_roundtrip(slice_rows(params, block_idx, p), cfg),
+                      shift_idx, cfg), grads, live, shift_idx, cfg)
     if cfg.delay == 0:
-        ext, ext_idx, valid = sent, block_idx, None
+        ext, ext_idx, valid, ext_live = sent, block_idx, None, sent_live
     else:
-        ext, ext_idx = state.buf, state.buf_idx
+        ext, ext_idx, ext_live = state.buf, state.buf_idx, state.buf_live
         valid = staleness_valid(state.step, cfg, depth=1)
+    gate_scale = combine_gate_scale(valid, ext_live, live)
     local_blk = slice_rows(params, ext_idx, p)
     grads_blk = slice_rows(grads, ext_idx, p)
     if acfg.use_fused:
         blended, gate = _fused_blend(local_blk, grads_blk, ext, cfg, acfg,
-                                     gate_scale=valid)
+                                     gate_scale=gate_scale)
     else:
         gate = _gossip_gate(local_blk, grads_blk, ext, acfg)
-        if valid is not None:
-            gate = gate * valid
+        if gate_scale is not None:
+            gate = gate * gate_scale
         blended = tree_map(lambda w, e, g: _blend(w, e, g, gate, acfg),
                            local_blk, ext, grads_blk)
     new_params = update_rows(local_sgd_apply(params, grads, acfg.eps),
                              blended, ext_idx, p)
     new_state = GossipState(buf=sent, buf_idx=block_idx,
-                            step=state.step + 1)
+                            step=state.step + 1, buf_live=sent_live)
     return new_params, new_state, {"gate": gate, "n_good": gate.sum()}
 
 
@@ -444,18 +541,19 @@ def asgd_gossip_apply(params, grads, state: GossipState, shift_idx: int,
     Delta_M); state: :class:`GossipState`; shift_idx, block_idx: this
     round's host-int draws (:func:`draw_gossip_indices`).  Silent configs
     and the off-rounds of ``cfg.gossip_every > 1`` take the local step
-    only.  ``live=`` (elastic liveness) is not ported and raises.
+    only.  ``live``: optional (W,) f32 0/1 per-peer liveness, on a state
+    from ``init_gossip_state(elastic=True)``.
 
     Returns (new_params, new_state, {"gate": (W,), "n_good": scalar})."""
-    if live is not None:
-        raise NotImplementedError(
-            "live= (elastic per-peer liveness) is not ported to the PyTorch "
-            "package yet — ROADMAP.md queue A, item 4")
+    leaf = flatten_sorted(params)[0][0]
+    live = _resolve_live(state.buf_live is not None, live, leaf.shape[0],
+                         leaf.device, "asgd_gossip_apply")
     if acfg.silent or (cfg.gossip_every > 1
                        and state.step % cfg.gossip_every):
-        return _local_round(params, grads, state, acfg.eps)
+        return _local_round(params, grads, state, acfg.eps, live)
     apply = _apply_rows if cfg.partial_mode == "rows" else _apply_leaves
-    return apply(params, grads, state, shift_idx, block_idx, cfg, acfg)
+    return apply(params, grads, state, shift_idx, block_idx, cfg, acfg,
+                 live=live)
 
 
 def sync_dp_apply(params, grads, eps):
@@ -486,12 +584,16 @@ class PackedGossipState:
       under int8, else None.
     buf_idx: tuple of D partition indices (host ints) the slots hold.
     step: round counter (host int).
+    buf_live: tuple of D (W,) f32 liveness vectors aligned with buf on an
+      elastic state, else None.  Transient like buf_scales: checkpoints
+      drop it.
     """
 
     buf: tuple
     buf_idx: tuple
     step: int
     buf_scales: tuple | None = None
+    buf_live: tuple | None = None
 
 
 def fifo_depth(cfg: GossipConfig, *, pipelined: bool = False) -> int:
@@ -502,14 +604,21 @@ def fifo_depth(cfg: GossipConfig, *, pipelined: bool = False) -> int:
 
 def init_packed_gossip_state(packed, cfg: GossipConfig | None = None,
                              block_rows: int | None = None,
-                             depth: int | None = None) -> PackedGossipState:
+                             depth: int | None = None,
+                             elastic: bool = False) -> PackedGossipState:
     """Zero staleness FIFO (eq. 3: all-zero == 'no message yet'; the first
     rounds are also closed by the staleness guard).  Under
     wire_format="int8" (pass the spec's block_rows) the slots are int8
-    zeros with zero scales."""
+    zeros with zero scales.  ``elastic=True`` carries ``buf_live`` at
+    zeros: every slot reads as dropped until a real exchange refills it
+    (the join window of a fresh start or an elastic restore)."""
     if depth is None:
         depth = fifo_depth(cfg) if cfg is not None else 1
     wn, rows = packed.shape[:2]
+    live = None
+    if elastic:
+        live = tuple(torch.zeros((wn,), dtype=torch.float32,
+                                 device=packed.device) for _ in range(depth))
     if cfg is not None and resolved_wire_format(cfg) == "int8":
         if block_rows is None:
             raise ValueError(
@@ -523,44 +632,52 @@ def init_packed_gossip_state(packed, cfg: GossipConfig | None = None,
             buf_scales=tuple(torch.zeros((wn, nb), dtype=torch.float32,
                                          device=packed.device)
                              for _ in range(depth)),
-            buf_idx=(0,) * depth, step=0)
+            buf_idx=(0,) * depth, step=0, buf_live=live)
     return PackedGossipState(
         buf=tuple(torch.zeros_like(packed) for _ in range(depth)),
-        buf_idx=(0,) * depth, step=0)
+        buf_idx=(0,) * depth, step=0, buf_live=live)
 
 
 def init_pipelined_gossip_state(packed, cfg: GossipConfig,
-                                block_rows: int | None = None
-                                ) -> PackedGossipState:
+                                block_rows: int | None = None,
+                                elastic: bool = False) -> PackedGossipState:
     """Staleness FIFO of the pipelined engine: depth ``cfg.delay + 1``."""
     return init_packed_gossip_state(packed, cfg, block_rows=block_rows,
-                                    depth=fifo_depth(cfg, pipelined=True))
+                                    depth=fifo_depth(cfg, pipelined=True),
+                                    elastic=elastic)
 
 
 def _fifo_head(state: PackedGossipState):
-    """(ext, ext_scales, ext_idx) — the OLDEST buffered payload."""
+    """(ext, ext_scales, ext_idx, ext_live) — the OLDEST buffered
+    payload."""
     scales = None if state.buf_scales is None else state.buf_scales[0]
-    return state.buf[0], scales, state.buf_idx[0]
+    live = None if state.buf_live is None else state.buf_live[0]
+    return state.buf[0], scales, state.buf_idx[0], live
 
 
-def _fifo_push(state: PackedGossipState, sent, sent_scales,
-               block_idx: int) -> PackedGossipState:
+def _fifo_push(state: PackedGossipState, sent, sent_scales, block_idx: int,
+               sent_live=None) -> PackedGossipState:
     """Drop the oldest payload, append the just-launched one, bump step."""
-    scales = None
+    scales = live = None
     if sent_scales is not None:
         scales = state.buf_scales[1:] + (sent_scales,)
+    if sent_live is not None:
+        live = state.buf_live[1:] + (sent_live,)
     return PackedGossipState(buf=state.buf[1:] + (sent,),
                              buf_idx=state.buf_idx[1:] + (int(block_idx),),
-                             step=state.step + 1, buf_scales=scales)
+                             step=state.step + 1, buf_scales=scales,
+                             buf_live=live)
 
 
-def _silent_round(packed, pgrads, state: PackedGossipState, step_lr):
-    """Plain local SGD step, FIFO untouched, step bumped, zero gates — the
-    silent-round body shared by the packed engines."""
+def _silent_round(packed, pgrads, state: PackedGossipState, step_lr,
+                  live=None):
+    """Plain local SGD step (dead workers frozen), FIFO untouched, step
+    bumped, zero gates — the silent-round body shared by the packed
+    engines."""
     new_state = dataclasses.replace(state, step=state.step + 1)
     zero = torch.zeros((packed.shape[0],), dtype=torch.float32,
                        device=packed.device)
-    return packed - step_lr * pgrads, new_state, {
+    return packed - step_lr * mask_live_rows(pgrads, live), new_state, {
         "gate": zero, "n_good": zero.sum()}
 
 
@@ -641,22 +758,35 @@ def exchange_packed(packed, ranges, shift_idx: int, block_idx: int,
         return _roll_packed_rows(packed, r0, r1, shift, cfg)
 
 
-def _blend_head(packed, pgrads, state, valid, cfg, acfg, spec, lr):
-    """Blend the FIFO head into the ensemble (both kernel passes)."""
-    ext, ext_scales, ext_idx = _fifo_head(state)
+def _blend_head(packed, pgrads, state, valid, cfg, acfg, spec, lr,
+                live=None):
+    """Blend the FIFO head into the ensemble (both kernel passes); the
+    staleness guard, the head's recorded liveness and this round's fold
+    into the gates' one ``gate_scale``."""
+    ext, ext_scales, ext_idx, ext_live = _fifo_head(state)
     ranges = packed_row_ranges(spec, cfg)
     new_packed, gates = gossip_blend_w_resident(
         packed, pgrads, ext[:, None], ranges[ext_idx], acfg.eps, lr=lr,
         ext_scales=None if ext_scales is None else ext_scales[:, None],
         use_parzen=acfg.use_parzen, elastic=acfg.elastic,
         elastic_alpha=acfg.elastic_alpha, block_rows=spec.block_rows,
-        gate_scale=valid)
+        gate_scale=combine_gate_scale(valid, ext_live, live))
     return new_packed, gates[:, 0]
+
+
+def _drop_dead(sent, sent_scales, live, shift_idx: int, cfg: GossipConfig):
+    """This round's payload (and its int8 scales) with the rows of dead
+    senders and receivers dropped, and its launch-time validity."""
+    sent_live = roll_live(live, shift_idx, cfg)
+    if sent_scales is not None:
+        sent_scales = mask_live_rows(sent_scales, sent_live)
+    return mask_live_rows(sent, sent_live), sent_scales, sent_live
 
 
 def asgd_gossip_apply_packed(packed, pgrads, state: PackedGossipState,
                              shift_idx: int, block_idx: int,
-                             cfg: GossipConfig, acfg: ASGDConfig, spec):
+                             cfg: GossipConfig, acfg: ASGDConfig, spec,
+                             live=None):
     """One packed-resident ASGD round (the unpipelined engine).
 
     Exchange partition ``block_idx`` with shift ``cfg.shifts[shift_idx]``,
@@ -666,73 +796,102 @@ def asgd_gossip_apply_packed(packed, pgrads, state: PackedGossipState,
     parity oracle.
 
     packed, pgrads: (W, R, LANE) f32 ensemble and packed local steps.
+    live: optional (W,) f32 0/1 per-peer liveness (elastic state).
     Returns (new_packed, new_state, {"gate": (W,), "n_good": scalar}).
     """
-    if acfg.silent:
-        return _silent_round(packed, pgrads, state, acfg.eps)
-    if cfg.gossip_every > 1 and state.step % cfg.gossip_every:
-        return _silent_round(packed, pgrads, state, acfg.eps)
+    live = _resolve_live(state.buf_live is not None, live, packed.shape[0],
+                         packed.device, "asgd_gossip_apply_packed")
+    if acfg.silent or (cfg.gossip_every > 1
+                       and state.step % cfg.gossip_every):
+        return _silent_round(packed, pgrads, state, acfg.eps, live)
     ranges = packed_row_ranges(spec, cfg)
     sent = exchange_packed(packed, ranges, shift_idx, block_idx, cfg,
                            block_rows=spec.block_rows)
     sent, sent_scales = sent if isinstance(sent, tuple) else (sent, None)
+    sent_live = None
+    if live is not None:
+        sent, sent_scales, sent_live = _drop_dead(sent, sent_scales, live,
+                                                  shift_idx, cfg)
+        pgrads = mask_live_rows(pgrads, live)
     if cfg.delay == 0:
         head = PackedGossipState(
             buf=(sent,), buf_idx=(block_idx,), step=state.step,
-            buf_scales=None if sent_scales is None else (sent_scales,))
+            buf_scales=None if sent_scales is None else (sent_scales,),
+            buf_live=None if sent_live is None else (sent_live,))
         valid = None
     else:
         head = state
         valid = staleness_valid(state.step, cfg)
     new_packed, gate = _blend_head(packed, pgrads, head, valid, cfg, acfg,
-                                   spec, None)
-    new_state = _fifo_push(state, sent, sent_scales, block_idx)
+                                   spec, None, live)
+    new_state = _fifo_push(state, sent, sent_scales, block_idx, sent_live)
     return new_packed, new_state, {"gate": gate, "n_good": gate.sum()}
 
 
 def initiate_exchange_packed(packed, shift_idx: int, block_idx: int,
-                             cfg: GossipConfig, spec):
+                             cfg: GossipConfig, spec, live=None):
     """The INITIATE half of the pipelined round: launch this round's
     payload from the CURRENT (pre-blend) ensemble.  Returns (sent,
-    sent_scales, block_idx); sent_scales is None except under int8."""
+    sent_scales, block_idx); sent_scales is None except under int8.  With
+    ``live`` the rows of dead senders and receivers are dropped and a
+    fourth element, ``sent_live`` (W,), carries the launch-time validity
+    to the consume half."""
     ranges = packed_row_ranges(spec, cfg)
     sent = exchange_packed(packed, ranges, shift_idx, block_idx, cfg,
                            block_rows=spec.block_rows)
     sent, sent_scales = sent if isinstance(sent, tuple) else (sent, None)
-    return sent, sent_scales, block_idx
+    if live is None:
+        return sent, sent_scales, block_idx
+    sent, sent_scales, sent_live = _drop_dead(
+        sent, sent_scales, live.to(dtype=torch.float32), shift_idx, cfg)
+    return sent, sent_scales, block_idx, sent_live
 
 
 def consume_exchange_packed(packed, pgrads, state: PackedGossipState, sent,
                             sent_scales, block_idx: int, cfg: GossipConfig,
-                            acfg: ASGDConfig, spec, lr=None):
+                            acfg: ASGDConfig, spec, lr=None, sent_live=None,
+                            live=None):
     """The CONSUME half: blend the FIFO head — the payload launched
     ``cfg.delay + 1`` rounds ago — with the eq.-1 step fused in-kernel
     (``lr``, default acfg.eps), then push the just-launched payload.  The
-    first delay+1 rounds blend placeholders and are gated out."""
+    first delay+1 rounds blend placeholders and are gated out.  On an
+    elastic state ``sent_live`` is the launch-time validity from the
+    initiate half (all alive when None) and ``live`` this round's
+    liveness: the head's recorded validity and ``live`` both gate."""
+    live = _resolve_live(state.buf_live is not None, live, packed.shape[0],
+                         packed.device, "consume_exchange_packed")
+    if live is not None:
+        if sent_live is None:
+            sent_live = torch.ones_like(live)
+        pgrads = mask_live_rows(pgrads, live)
     valid = staleness_valid(state.step, cfg, extra=1)
     new_packed, gate = _blend_head(packed, pgrads, state, valid, cfg, acfg,
-                                   spec, lr)
-    new_state = _fifo_push(state, sent, sent_scales, block_idx)
+                                   spec, lr, live)
+    new_state = _fifo_push(state, sent, sent_scales, block_idx, sent_live)
     return new_packed, new_state, {"gate": gate, "n_good": gate.sum()}
 
 
 def asgd_gossip_apply_pipelined(packed, pgrads, state: PackedGossipState,
                                 shift_idx: int, block_idx: int,
                                 cfg: GossipConfig, acfg: ASGDConfig, spec,
-                                lr=None):
+                                lr=None, live=None):
     """One PIPELINED packed-resident round: initiate + consume composed.
     Effective staleness ``cfg.delay + 1``: bitwise equal to
     :func:`asgd_gossip_apply_packed` at ``delay + 1`` on the same indices.
-    ``state`` comes from :func:`init_pipelined_gossip_state`."""
+    ``state`` comes from :func:`init_pipelined_gossip_state`; ``live`` as
+    in :func:`asgd_gossip_apply_packed`."""
     step_lr = acfg.eps if lr is None else lr
-    if acfg.silent:
-        return _silent_round(packed, pgrads, state, step_lr)
-    if cfg.gossip_every > 1 and state.step % cfg.gossip_every:
-        return _silent_round(packed, pgrads, state, step_lr)
-    sent, sent_scales, block_idx = initiate_exchange_packed(
-        packed, shift_idx, block_idx, cfg, spec)
-    return consume_exchange_packed(packed, pgrads, state, sent, sent_scales,
-                                   block_idx, cfg, acfg, spec, lr=lr)
+    live = _resolve_live(state.buf_live is not None, live, packed.shape[0],
+                         packed.device, "asgd_gossip_apply_pipelined")
+    if acfg.silent or (cfg.gossip_every > 1
+                       and state.step % cfg.gossip_every):
+        return _silent_round(packed, pgrads, state, step_lr, live)
+    sent = initiate_exchange_packed(packed, shift_idx, block_idx, cfg, spec,
+                                    live=live)
+    sent_live = sent[3] if live is not None else None
+    return consume_exchange_packed(packed, pgrads, state, *sent[:3], cfg,
+                                   acfg, spec, lr=lr, sent_live=sent_live,
+                                   live=live)
 
 
 def final_average(params):

@@ -18,7 +18,7 @@ from typing import Any
 import torch
 
 from ..kernels import LANE
-from .tree import flatten_sorted, unflatten
+from .tree import flatten_sorted, tree_map, unflatten
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -293,6 +293,26 @@ def fake_quant_rows(blk, block_rows: int):
     """The wire round-trip as a value map: dequantize(quantize(blk))."""
     q, scales = quantize_rows(blk, block_rows)
     return dequantize_rows(q, scales, block_rows)
+
+
+def resize_worker_axis(tree, w_new: int):
+    """Re-seat a leading-worker-axis tree (or tensor) onto ``w_new``
+    workers — the elastic checkpoint migration: shrinking keeps the first
+    ``w_new`` replicas, growing tiles them cyclically (worker ``w`` adopts
+    replica ``w % w_old``), so every worker starts from a trained model.
+    Device and dtype are kept."""
+    if w_new < 1:
+        raise ValueError(f"resize_worker_axis: w_new={w_new} < 1")
+
+    def f(x):
+        w_old = x.shape[0]
+        if w_old == w_new:
+            return x
+        if w_new < w_old:
+            return x[:w_new]
+        return x.repeat((-(-w_new // w_old),) + (1,) * (x.ndim - 1))[:w_new]
+
+    return tree_map(f, tree)
 
 
 def group_ranges_array(spec: WPackSpec, device=None):

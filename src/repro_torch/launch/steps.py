@@ -60,8 +60,8 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
                     inner="sgd", gcfg: GossipConfig | None = None,
                     acfg: ASGDConfig | None = None, pipelined=False,
                     lr_schedule=None):
-    """Returns step(params, gossip, opt_state, batch, shift_idx, block_idx)
-    -> (params, gossip, opt_state, metrics).
+    """Returns step(params, gossip, opt_state, batch, shift_idx, block_idx,
+    live=None) -> (params, gossip, opt_state, metrics).
 
     pack_spec None selects the pytree engine: params is a tree of (W, ...)
     leaves, gossip an init_gossip_state.  Otherwise params is the
@@ -69,10 +69,12 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     mode) and gossip an init_packed_gossip_state (init_pipelined_
     gossip_state when pipelined).  batch: {"tokens": (W, B, S)};
     shift_idx, block_idx: this round's host-int draws
-    (core.gossip.draw_gossip_indices).  algo: 'asgd' (paper), 'silent'
-    (SimuParallelSGD: local steps only) or 'sync' (synchronous
-    data-parallel SGD).  inner: 'sgd' | 'momentum' | 'adam'.  lr_schedule
-    (pipelined only): step -> lr, the consume blend's per-round lr operand.
+    (core.gossip.draw_gossip_indices); live: optional (W,) f32 0/1
+    per-peer liveness on an elastic gossip state (algo 'asgd' only).
+    algo: 'asgd' (paper), 'silent' (SimuParallelSGD: local steps only) or
+    'sync' (synchronous data-parallel SGD).  inner: 'sgd' | 'momentum' |
+    'adam'.  lr_schedule (pipelined only): step -> lr, the consume blend's
+    per-round lr operand.
     Raises NotImplementedError for an arch the port cannot train ('S'
     layers: the SSD scan has no backward yet).
     """
@@ -118,7 +120,15 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
             return sync_dp_apply(params, dw, acfg.eps)
         return local_sgd_apply(params, dw, acfg.eps)
 
-    def pytree_step(params, gossip, opt_state, batch, shift_idx, block_idx):
+    def check_live(live):
+        if live is not None and algo != "asgd":
+            raise ValueError(
+                f"live= (per-peer liveness) requires algo='asgd' (got "
+                f"{algo!r}): sync/silent carry no gossip state to gate")
+
+    def pytree_step(params, gossip, opt_state, batch, shift_idx, block_idx,
+                    live=None):
+        check_live(live)
         loss, grads = tree_loss_and_grad(cfg, params, batch)
         with torch.no_grad():
             dw, opt_state = direction(params, grads, opt_state)
@@ -126,19 +136,24 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
             if algo != "asgd":
                 return baseline(params, dw), gossip, opt_state, metrics
             new_params, new_gossip, gm = asgd_gossip_apply(
-                params, dw, gossip, shift_idx, block_idx, gcfg, acfg)
+                params, dw, gossip, shift_idx, block_idx, gcfg, acfg,
+                live=live)
         metrics.update(gm)
         return new_params, new_gossip, opt_state, metrics
 
     if pack_spec is None:
         return pytree_step
 
-    def step(packed, gossip, opt_state, batch, shift_idx, block_idx):
+    def step(packed, gossip, opt_state, batch, shift_idx, block_idx,
+             live=None):
+        check_live(live)
         lr = None if lr_schedule is None else lr_schedule(gossip.step)
         if pipelined and not acfg.silent:
-            # INITIATE: this round's payload from the pre-blend ensemble
-            sent, sent_scales, block_idx = initiate_exchange_packed(
-                packed, shift_idx, block_idx, gcfg, pack_spec)
+            # INITIATE: this round's payload from the pre-blend ensemble;
+            # with live, its launch-time validity crosses to the CONSUME
+            sent = initiate_exchange_packed(packed, shift_idx, block_idx,
+                                            gcfg, pack_spec, live=live)
+            sent_live = sent[3] if live is not None else None
         loss, pgrads = packed_loss_and_grad(cfg, packed, batch, pack_spec)
         with torch.no_grad():
             dw, opt_state = direction(packed, pgrads, opt_state)
@@ -148,17 +163,18 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
             if pipelined:
                 if acfg.silent:
                     new_packed, new_gossip, gm = _silent_round(
-                        packed, dw, gossip, acfg.eps if lr is None else lr)
+                        packed, dw, gossip, acfg.eps if lr is None else lr,
+                        live)
                 else:
                     # CONSUME: blend the payload launched delay+1 rounds
                     # ago, push this round's
                     new_packed, new_gossip, gm = consume_exchange_packed(
-                        packed, dw, gossip, sent, sent_scales, block_idx,
-                        gcfg, acfg, pack_spec, lr=lr)
+                        packed, dw, gossip, *sent[:3], gcfg, acfg,
+                        pack_spec, lr=lr, sent_live=sent_live, live=live)
             else:
                 new_packed, new_gossip, gm = asgd_gossip_apply_packed(
                     packed, dw, gossip, shift_idx, block_idx, gcfg, acfg,
-                    pack_spec)
+                    pack_spec, live=live)
         metrics.update(gm)
         return new_packed, new_gossip, opt_state, metrics
 

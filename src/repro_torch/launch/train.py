@@ -13,9 +13,16 @@ the gossip round on the pytree and packed engines.  Add ``--device cpu``
 (and ``--reduced`` for the smoke-scale arch) to run on the CPU through the
 kernels' plain versions.
 
-Not ported yet, and raising with the ROADMAP.md item that carries them:
---elastic (per-peer liveness, item 4), --save and --restore (checkpoints,
-item 5), archs with 'S' (mamba-2 SSD) layers (SSM training, item 9).
+--save writes the train state after the last step and --restore resumes
+from such a file at its step, running on to --steps (files of the JAX
+reference's trainer restore too, and the other way round).  --elastic
+(with --algo asgd) carries a per-peer liveness mask in the gossip state,
+passes an all-alive mask to every step, and lets --restore take a file
+saved at another --workers count: the workers are re-seated and the
+restored FIFO stays gated out for the join window.
+
+Not ported yet, and raising with the ROADMAP.md item that carries it:
+archs with 'S' (mamba-2 SSD) layers (SSM training, item 9).
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ import time
 import torch
 
 from .. import resolve_device, set_full_fp32_precision
+from ..checkpoint import (load_checkpoint, load_checkpoint_packed,
+                          save_checkpoint, save_checkpoint_packed)
 from ..configs.registry import get_arch
 from ..core.asgd import ASGDConfig
 from ..core.gossip import (GossipConfig, draw_gossip_indices, final_average,
@@ -35,12 +44,6 @@ from ..core.tree import tree_map
 from ..data.synthetic import lm_batch_iterator
 from ..models import model as M
 from .steps import init_inner_state, make_train_step
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet — ROADMAP.md "
-        f"queue A, {item}")
 
 
 def gossip_config(workers: int, partial_blocks: int = 4, delay: int = 1,
@@ -68,21 +71,29 @@ def batch_iterators(cfg, workers: int, batch: int, seq: int, seed: int):
 
 
 def run_steps(step_fn, state: dict, its, draws: torch.Generator, gcfg,
-              steps: int, device, log_every: int = 10):
-    """The training loop shared by every engine: per step, one batch per
-    worker, this round's (shift_idx, block_idx) host draws, one step.
-    ``state`` holds "params", "gossip" and "opt" and is updated in place.
-    Returns {"losses", "step_seconds", "n_good"}."""
+              steps: int, device, log_every: int = 10, start: int = 0,
+              live=None):
+    """The training loop shared by every engine: for rounds ``start`` to
+    ``steps - 1``, one batch per worker, the round's (shift_idx,
+    block_idx) host draws, one step (with ``live``, the per-peer liveness
+    mask, when given).  Round t takes the generator's t-th draws, so a
+    resumed run draws as an uninterrupted one.  ``state`` holds "params",
+    "gossip" and "opt" and is updated in place; its "step" becomes the
+    next round.  Returns {"losses", "step_seconds", "n_good"}."""
     losses, step_seconds, n_good = [], [], []
+    live_args = () if live is None else (live,)
+    for _ in range(start):
+        draw_gossip_indices(draws, gcfg)
     t0 = time.perf_counter()
-    for step in range(steps):
+    for step in range(start, steps):
         t_step = time.perf_counter()
         tokens = torch.stack([torch.from_numpy(next(it)["tokens"])
                               for it in its]).to(device)
         shift_idx, block_idx = draw_gossip_indices(draws, gcfg)
         state["params"], state["gossip"], state["opt"], metrics = step_fn(
             state["params"], state["gossip"], state["opt"],
-            {"tokens": tokens}, shift_idx, block_idx)
+            {"tokens": tokens}, shift_idx, block_idx, *live_args)
+        state["step"] = step + 1
         losses.append(float(metrics["loss"]))      # waits for the step
         step_seconds.append(time.perf_counter() - t_step)
         if "n_good" in metrics:
@@ -97,7 +108,10 @@ def run_steps(step_fn, state: dict, its, draws: torch.Generator, gcfg,
 
 def main(argv=None):
     """Parse flags, train, and return {"losses", "step_seconds", "n_good",
-    "params"} (params: the final worker-averaged tree)."""
+    "params", "state", "spec"} (params: the final worker-averaged tree;
+    state: the final train state, as --save writes it; spec: the packed
+    layout, None on the pytree engine), with "restore_seconds" and
+    "save_seconds" (host clock) when --restore and --save are given."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -119,7 +133,9 @@ def main(argv=None):
     ap.add_argument("--delay", type=int, default=1)
     ap.add_argument("--wire-format", default="none",
                     choices=["none", "int8", "bf16", "f16"])
-    ap.add_argument("--elastic", action="store_true")
+    ap.add_argument("--elastic", action="store_true",
+                    help="per-peer liveness in the gossip state; --restore "
+                         "then accepts a file saved at another --workers")
     ap.add_argument("--elastic-blend", action="store_true",
                     help="beyond-paper elastic (EASGD-style) blending")
     ap.add_argument("--lr-schedule", default="none",
@@ -130,17 +146,18 @@ def main(argv=None):
                     help="pipeline the gossip round (implies "
                          "--packed-resident)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--save", default=None)
-    ap.add_argument("--restore", default=None)
+    ap.add_argument("--save", default=None,
+                    help="checkpoint path, written after the last step")
+    ap.add_argument("--restore", default=None,
+                    help="resume from a checkpoint at its step")
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
     if args.pipelined:
         args.packed_resident = True
-    if args.elastic:
-        _not_ported("--elastic (per-peer liveness)", "item 4")
-    if args.save or args.restore:
-        _not_ported("--save / --restore (checkpoints)", "item 5")
+    if args.elastic and args.algo != "asgd":
+        ap.error("--elastic requires --algo asgd (the liveness gates live "
+                 "in the gossip state)")
     if args.lr_schedule != "none" and not args.pipelined:
         ap.error("--lr-schedule requires --pipelined")
 
@@ -163,7 +180,7 @@ def main(argv=None):
         schedule = _mk_sched(args.lr_schedule, args.eps,
                              warmup=args.warmup, total=args.steps)
 
-    spec = None
+    spec, timing = None, {}
     if args.packed_resident:
         # pack ONCE at init; the ensemble stays packed until the final
         # average
@@ -175,22 +192,43 @@ def main(argv=None):
         init_state = (init_pipelined_gossip_state if args.pipelined
                       else init_packed_gossip_state)
         state = {"params": packed,
-                 "gossip": init_state(packed, gcfg, block_rows=wire_br),
-                 "opt": init_inner_state(packed, args.inner)}
+                 "gossip": init_state(packed, gcfg, block_rows=wire_br,
+                                      elastic=args.elastic),
+                 "opt": init_inner_state(packed, args.inner), "step": 0}
     else:
         wparams = tree_map(torch.Tensor.contiguous, wparams)
         state = {"params": wparams,
-                 "gossip": init_gossip_state(wparams, gcfg),
-                 "opt": init_inner_state(wparams, args.inner)}
+                 "gossip": init_gossip_state(wparams, gcfg,
+                                             elastic=args.elastic),
+                 "opt": init_inner_state(wparams, args.inner), "step": 0}
     del params, wparams
+    if args.restore:
+        t0 = time.perf_counter()
+        if spec is not None:
+            state = load_checkpoint_packed(args.restore, state, spec,
+                                           elastic=args.elastic)
+            how = f" (re-packed{', elastic' if args.elastic else ''})"
+        else:
+            state = load_checkpoint(args.restore, state,
+                                    resize_workers=args.elastic)
+            how = ""
+        timing["restore_seconds"] = time.perf_counter() - t0
+        print(f"restored step={state['step']} from {args.restore}{how}",
+              flush=True)
 
     step_fn = make_train_step(
         cfg, pack_spec=spec, algo=args.algo, inner=args.inner, gcfg=gcfg,
         acfg=acfg, pipelined=args.pipelined, lr_schedule=schedule)
+    # the trainer drives a fully live fleet; a launcher that detects churn
+    # would flip entries of this mask per round
+    live = (torch.ones((W,), dtype=torch.float32, device=device)
+            if args.elastic else None)
+    # the batch streams restart on a resume, as the reference's do
     out = run_steps(step_fn, state,
                     batch_iterators(cfg, W, args.batch, args.seq, args.seed),
                     torch.Generator().manual_seed(args.seed), gcfg,
-                    args.steps, device, args.log_every)
+                    args.steps, device, args.log_every, start=state["step"],
+                    live=live)
 
     # final aggregate (paper §4.3) — for the packed engines the run's one
     # unpack boundary
@@ -199,7 +237,19 @@ def main(argv=None):
     if out["losses"]:
         print(f"final: last-loss={out['losses'][-1]:.4f} "
               f"(start {out['losses'][0]:.4f})", flush=True)
-    return {**out, "params": final_average(final)}
+    else:
+        print(f"final: no steps run (restored step {state['step']} >= "
+              f"--steps {args.steps})", flush=True)
+    if args.save:
+        t0 = time.perf_counter()
+        if spec is not None:
+            save_checkpoint_packed(args.save, state, spec)
+        else:
+            save_checkpoint(args.save, state)
+        timing["save_seconds"] = time.perf_counter() - t0
+        print(f"saved -> {args.save}", flush=True)
+    return {**out, **timing, "params": final_average(final), "state": state,
+            "spec": spec}
 
 
 if __name__ == "__main__":

@@ -96,7 +96,8 @@ def test_silent_sync_local_and_live():
     for a, b in zip(jax.tree.leaves(out),
                     jax.tree.leaves(tg.local_sgd_apply(tp, tgr, 0.05))):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # live= needs an elastic state, as in the reference
+    with pytest.raises(ValueError, match="elastic=True"):
         tg.asgd_gossip_apply(tp, tgr, state, *draws(jax.random.key(0),
                                                     jcfg), tcfg, tacfg,
                              live=torch.ones(W))

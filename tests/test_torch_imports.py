@@ -61,3 +61,14 @@ def test_kmeans_slice_modules_are_checked(module):
 def test_serve_slice_modules_are_checked(module):
     """The serving slice's modules are among the files checked above."""
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", [
+    "checkpoint/__init__.py", "checkpoint/checkpoint.py",
+    "checkpoint/codec.py"])
+def test_checkpoint_slice_modules_are_checked(module):
+    """The checkpoint slice's modules are among the files checked above,
+    and none of them, nor any other file of the port, imports msgpack:
+    the GPU machine has none (checkpoint/codec.py writes the format)."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+    assert not any("msgpack" in imported_roots(p) for p in PORT_FILES)
