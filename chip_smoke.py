@@ -63,21 +63,42 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      decay extremes and on cancelling sums (split TF32 within the gate):
      y and h within 1e-4 of the largest magnitude of the plain version's,
      bitwise repeatable;
- 13. [serve-check] reduced mamba2-370m and smollm-135m from the same
+ 13. [kernels] B5b (ssd_scan_bwd, the SSD scan's backward) at the
+     mamba2-370m training shape (batch 8 = W 4 x 2, S 512, 32 heads of 64,
+     state 128, chunk 128) against the plain backward on the same inputs
+     (B5's saved L and h_prev): a random input, x, B and C as views of a
+     conv output (bitwise the contiguous copies' gradients) and cancelling
+     sums; every gradient within 1e-4 of its largest magnitude, bitwise
+     repeatable; its time, bound and stages; through autograd, one B5 and
+     one B5b launch;
+ 14. [serve-check] reduced mamba2-370m and smollm-135m from the same
      CPU-made weights, GPU against CPU: prefill and 4 decode steps' logits,
-     greedy tokens off near-ties, every cache leaf;
- 14. [serve] the serving path, ``repro_torch.launch.serve.main``, on full
+     greedy tokens off near-ties, every cache leaf; smollm also at a
+     2048-token prompt (attention_flash);
+ 15. [serve] the serving path, ``repro_torch.launch.serve.main``, on full
      mamba2-370m (batch 4, prompt 2048, 32 new tokens), counters zeroed
      before and read after — B5 48 times a prefill, 0 in decode — its
      steady prefill and decode times, a profile of one prefill and of one
-     decode step; then full smollm-135m (batch 4, prompt 1024) and its
-     steady times.
+     decode step; then full smollm-135m (batch 4, prompt 2048: every 'G'
+     layer of the prefill through attention_flash, counted) and its steady
+     times;
+ 16. [ssm-train-check] reduced mamba2-370m (seq 32: 4 chunks of 8), 3
+     pipelined int8 steps from distinct worker starts, GPU (B5, B5b, B1)
+     against CPU: losses rel 1e-4, ensembles atol 1e-4, n_good equal and
+     not all 0;
+ 17. [ssm-train] the SSM training path, ``repro_torch.launch.train`` on
+     full mamba2-370m (48 layers, d_model 1024, random weights from seed
+     0), W=4, batch 2, seq 512, --pipelined --wire-format int8, 8 steps,
+     counters zeroed before and read after — B5 and B5b 48 times a step,
+     B1r/B1a once — its steady step time and peak memory, the forward and
+     backward of one step by CUDA events and its profile.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and last the device JSON line.  Without a GPU, or without the repo's
 sources beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -370,11 +391,13 @@ def check_admitted(tag, n_good):
                              f" — the check would not cover the blend")
 
 
-def phase_small_check(torch, device):
-    """3 pipelined int8 steps of the reduced model on the GPU (kernels) and
+def pipelined_check(torch, device, arch, tag):
+    """3 pipelined int8 steps of reduced ``arch`` on the GPU (kernels) and
     on the CPU (plain versions) from the same distinct worker starts,
     batches and draws: losses within rel 1e-4, n_good equal and not all 0,
-    ensembles within atol 1e-4."""
+    ensembles within atol 1e-4.  Returns (GPU losses, CPU losses, n_good,
+    max |ensemble diff|, the GPU run's launch counts)."""
+    from repro_torch import kernels as K
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import gossip as G
     from repro_torch.core.asgd import ASGDConfig
@@ -383,7 +406,7 @@ def phase_small_check(torch, device):
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.model import init_model
 
-    cfg = get_arch("smollm-135m").reduced()
+    cfg = get_arch(arch).reduced()
     wp = worker_starts(torch, init_model(cfg, 0, device="cpu"))
     gcfg = G.GossipConfig(shifts=(1, 2), partial_blocks=4, delay=1,
                           wire_format="int8")
@@ -400,25 +423,33 @@ def phase_small_check(torch, device):
         its = [lm_batch_iterator(w, 2, 32, cfg.vocab) for w in range(W)]
         draws = torch.Generator().manual_seed(0)
         out = []
+        K.reset_launch_counts()
         for _ in range(3):
             tokens = torch.stack([torch.from_numpy(next(it)["tokens"])
                                   for it in its]).to(dev)
             packed, state, _, m = step(packed, state, 0, {"tokens": tokens},
                                        *G.draw_gossip_indices(draws, gcfg))
             out.append((float(m["loss"]), float(m["n_good"])))
-        runs[str(dev)] = (out, packed.cpu())
-    (cpu, cpu_pk), (gpu, gpu_pk) = runs["cpu"], runs[str(device)]
+        runs[str(dev)] = (out, packed.cpu(), K.launch_counts())
+    (cpu, cpu_pk, _), (gpu, gpu_pk, counts) = runs["cpu"], runs[str(device)]
     for (lc, gc), (lg, gg) in zip(cpu, gpu):
         if abs(lg - lc) > 1e-4 * abs(lc) or gc != gg:
-            raise AssertionError(f"small check: GPU (loss {lg}, n_good {gg})"
-                                 f" vs CPU (loss {lc}, n_good {gc})")
+            raise AssertionError(f"{tag}: GPU (loss {lg}, n_good {gg}) vs "
+                                 f"CPU (loss {lc}, n_good {gc})")
     err = float((gpu_pk - cpu_pk).abs().max())
     if not err <= 1e-4:
-        raise AssertionError(f"small check: ensembles differ by {err:.3e}")
-    check_admitted("small check", [g for _, g in gpu])
+        raise AssertionError(f"{tag}: ensembles differ by {err:.3e}")
+    check_admitted(tag, [g for _, g in gpu])
+    return ([l for l, _ in gpu], [l for l, _ in cpu], [g for _, g in gpu],
+            err, counts)
+
+
+def phase_small_check(torch, device):
+    gpu, cpu, n_good, err, _ = pipelined_check(torch, device, "smollm-135m",
+                                               "small check")
     log(f"[check] reduced smollm, 3 pipelined int8 steps: GPU vs CPU "
-        f"losses {[round(l, 6) for l, _ in gpu]} vs "
-        f"{[round(l, 6) for l, _ in cpu]}, n_good {[g for _, g in gpu]}, "
+        f"losses {[round(l, 6) for l in gpu]} vs "
+        f"{[round(l, 6) for l in cpu]}, n_good {n_good}, "
         f"max |ensemble diff| {err:.3e}")
 
 
@@ -1515,7 +1546,7 @@ SSD_PAD_S = 2000                          # padded to 2048 by ops.ssd_scan
 TOL_SSD = 1e-4                            # of the result's largest magnitude
 SSD_KERNEL_NAMES = ("chunk_prep", "chunk_state", "chunk_out")   # B5's stages
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
-SMOLLM_PROMPT = 1024                      # below FLASH_MIN_SEQ (2048)
+SMOLLM_PROMPT = 2048                      # FLASH_MIN_SEQ: attention_flash
 TOL_SERVE = 1e-4                          # GPU vs CPU, of the largest
 #                                           magnitude (bf16 KV leaves 1e-2)
 
@@ -1704,20 +1735,22 @@ def serve_run(torch, cfg, params, tokens, dev, steps):
 
 
 def phase_serve_check(torch, device):
-    """Reduced mamba2-370m and smollm-135m, the same CPU-made weights and
-    prompts on the GPU (B5 in every 'S' layer) and the CPU (plain): the
-    prefill's and 4 decode steps' logits within TOL_SERVE of their largest
-    magnitude, the greedy tokens equal wherever the CPU's top-2 margin
-    exceeds twice that, and every cache leaf close."""
+    """Reduced mamba2-370m and smollm-135m (prompts of 32, and smollm's of
+    2048 too: its 'G' layers then take attention_flash), the same CPU-made
+    weights and prompts on the GPU (B5 in every 'S' layer) and the CPU
+    (plain): the prefill's and 4 decode steps' logits within TOL_SERVE of
+    their largest magnitude, the greedy tokens equal wherever the CPU's
+    top-2 margin exceeds twice that, and every cache leaf close."""
     from repro_torch import kernels as K
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.tree import flatten_sorted
     from repro_torch.models.model import init_model
 
-    for arch in ("mamba2-370m", "smollm-135m"):
+    for arch, plen in (("mamba2-370m", 32), ("smollm-135m", 32),
+                       ("smollm-135m", SMOLLM_PROMPT)):
         cfg = get_arch(arch).reduced()
         params = init_model(cfg, 0, device="cpu")
-        prompt = torch.randint(0, cfg.vocab, (2, 32),
+        prompt = torch.randint(0, cfg.vocab, (2, plen),
                                generator=torch.Generator().manual_seed(1))
         cpu = serve_run(torch, cfg, params, {"prompt": prompt}, "cpu", 4)
         K.reset_launch_counts()
@@ -1749,7 +1782,7 @@ def phase_serve_check(torch, device):
                 raise AssertionError(f"serve check {arch}: a cache leaf "
                                      f"differs by {d:.3e}")
             cache_err = max(cache_err, d)
-        log(f"[serve-check] reduced {arch}, batch 2, prompt 32, 4 decode "
+        log(f"[serve-check] reduced {arch}, batch 2, prompt {plen}, 4 decode "
             f"steps: GPU vs CPU logits max abs err "
             f"{[float(f'{e:.3e}') for e in errs]}, greedy tokens equal "
             f"({near} near ties), cache leaves max abs err {cache_err:.3e}; "
@@ -1779,6 +1812,7 @@ def phase_serve(torch, device):
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.ssd_scan.kernel import SCAN
     from repro_torch.launch import serve
+    from repro_torch.models import blocks
     from repro_torch.models import model as M
 
     cfg = get_arch("mamba2-370m")
@@ -1845,10 +1879,15 @@ def phase_serve(torch, device):
             str(SERVE_NEW)]
     log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv)}")
     torch.cuda.reset_peak_memory_stats()
-    toks = serve.main(argv)
-    if tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW):
-        raise AssertionError(f"serve smollm: tokens {tuple(toks.shape)}")
-    log(f"[serve] smollm-135m peak memory "
+    with count_calls(blocks, "attention_flash") as flash:
+        toks = serve.main(argv)
+    if tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW) or \
+            len(flash) != cfg.n_layers:
+        raise AssertionError(f"serve smollm: tokens {tuple(toks.shape)}, "
+                             f"attention_flash called {len(flash)} times "
+                             f"for {cfg.n_layers} 'G' layers of a prefill")
+    log(f"[serve] smollm-135m: attention_flash {len(flash)} calls (one per "
+        f"'G' layer of the {SMOLLM_PROMPT}-token prefill); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     params = M.init_model(cfg, 0, device=device)
     serve_timings(torch, cfg, params, {"tokens": torch.randint(
@@ -1857,6 +1896,264 @@ def phase_serve(torch, device):
     del params
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the SSM training slice: B5b (the SSD scan's backward) and mamba2-370m
+# training; the serving phases above take smollm-135m's attention_flash
+# ---------------------------------------------------------------------------
+
+SSD_TRAIN_SHAPE = (8, 512, 32, 64, 128, 128)   # W 4 x batch 2, seq 512
+SSD_BWD_NAMES = ("walk_bwd", "dx_bwd", "bc_bwd", "final_bwd")  # B5b's stages
+GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+SSM_TRAIN_STEPS, SSM_TRAIN_SEQ = 8, 512
+
+
+@contextlib.contextmanager
+def count_calls(module, name):
+    """Counts the calls of ``module.name`` inside the block (a list, one
+    entry a call) and restores it after."""
+    real, calls = getattr(module, name), []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def ssd_bwd_check(torch, name, got, ref, repeat=None):
+    """Each of B5b's five gradients within TOL_SSD of the plain backward's
+    largest magnitude, finite; with ``repeat``, two more launches bitwise
+    equal.  Returns {gradient: (max abs err, err / max|plain|)}."""
+    errs = {}
+    for what, a, b in zip(GRAD_NAMES, got, ref):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if not bool(torch.isfinite(a).all()) or not err <= TOL_SSD * scale:
+            raise AssertionError(f"{name} {what}: kernel vs plain max abs "
+                                 f"err {err:.3e} > {TOL_SSD} x {scale:.3e}")
+        errs[what] = (err, err / scale)
+    if repeat is not None:
+        for _ in range(2):
+            if not all(torch.equal(p, q) for p, q in zip(repeat(), got)):
+                raise AssertionError(f"{name}: not reproducible")
+    return errs
+
+
+def ssd_bwd_work(Bb, S, H, P, N, Q):
+    """(bytes, operations) the SSD scan's gradient needs: x, dt, A, B, C,
+    dy and d h_final read once, dx, ddt, dA, dB, dC written once; the
+    multiply-adds (2 operations each) of the products, none twice: the
+    state walk (chunks 1..nc-1), per (b, c, h) dy_i.xdt_j and its product
+    with dy over the triangle, B.dh_c and dh_c.xdt, h_prev.dy (chunks
+    1..nc-1: h_prev of chunk 0 is zero), per (b, c) the triangle's sums
+    over B and C."""
+    nc = S // Q
+    n_bytes = 4 * (3 * Bb * S * H * P + 2 * Bb * S * H + 2 * Bb * H
+                   + 4 * Bb * S * N + Bb * H * N * P)
+    macs = (Bb * H * ((nc - 1) * 2 * Q * N * P
+                      + nc * (Q * (Q + 1) * P + 2 * Q * N * P))
+            + Bb * nc * Q * (Q + 1) * N)
+    return n_bytes, 2 * macs
+
+
+def phase_ssd_bwd_kernel(torch, device):
+    """B5b against the plain backward at the training shape, on the same
+    inputs (B5's saved L and h_prev): a random input, a cancelling one and
+    x, B, C as views of a conv output; through autograd once (one B5 and
+    one B5b launch, the gradients bitwise the direct call's)."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.ssd_scan import ssd_scan_chunked
+    from repro_torch.kernels.ssd_scan.kernel import (SCAN, SCAN_BWD,
+                                                     _bwd_library,
+                                                     _scan_bwd_cuda,
+                                                     _scan_cuda,
+                                                     saved_for_backward)
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain_bwd
+
+    Bb, S, H, P, N, Q = SSD_TRAIN_SHAPE
+    g = torch.Generator(device=device).manual_seed(9)
+    dy = torch.randn((Bb, S, H, P), generator=g, device=device)
+    dh = torch.randn((Bb, H, N, P), generator=g, device=device)
+
+    def case(label, ops):
+        """(run, gradients, plain gradients, errors) of B5b on ``ops``."""
+        _, _, work = _scan_cuda(*ops, Q)
+        saved = saved_for_backward(work, ops[0], ops[3], Q)
+        run = lambda: _scan_bwd_cuda(*ops, work, dy, dh, Q)  # noqa: E731
+        got = run()
+        ref = ssd_scan_plain_bwd(*ops, *saved, dy, dh, Q)
+        torch.cuda.synchronize()
+        return run, got, ref, ssd_bwd_check(torch, f"B5b/{label}", got, ref,
+                                            run), saved
+
+    ops = ssd_operands(torch, device, Bb, S, H, P, N, seed=8)
+    run, got, ref, errs, saved = case("train", ops)
+    ins = [t.clone().requires_grad_() for t in ops]
+    K.reset_launch_counts()
+    y, h = ssd_scan_chunked(*ins, Q)
+    auto = torch.autograd.grad([y, h], ins, [dy, dh])
+    torch.cuda.synchronize()
+    if K.launch_counts() != {SCAN: 1, SCAN_BWD: 1}:
+        raise AssertionError(f"B5b: counted {K.launch_counts()} for one "
+                             f"forward and backward")
+    if not all(torch.equal(a, b) for a, b in zip(auto, got)):
+        raise AssertionError("B5b: autograd's gradients differ from the "
+                             "direct call's")
+    del y, h, auto, ins
+    ms = cuda_ms(run, 20)
+    plain_ms = cuda_ms(lambda: ssd_scan_plain_bwd(*ops, *saved, dy, dh, Q),
+                       3)
+    n_bytes, n_flops = ssd_bwd_work(Bb, S, H, P, N, Q)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    stages = []
+    for name in SSD_BWD_NAMES:
+        dev = device_ms(torch, run, (name,), 5)
+        stages.append(f"{name} "
+                      + ("not traced" if dev is None else f"{dev[0]:.4f}"))
+    err = max(e for e, _ in errs.values())
+    log(f"[kernels] B5b Bb={Bb} S={S} H={H} P={P} N={N} chunk={Q}: kernel "
+        f"{ms:.4f} ms ({_bwd_library().ssd_bwd_launches()} device launches "
+        f"a call: {', '.join(stages)} ms of device time), plain "
+        f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_flops / 1e9:.2f} GFLOP of f32 SIMT, {n_bytes / 1e9:.3f} GB), "
+        f"{b_ms / ms:.1%} of it; err / max|plain| "
+        f"{', '.join(f'{k} {r:.2e}' for k, (_, r) in errs.items())}; "
+        f"bitwise repeatable; through autograd: 1 B5 + 1 B5b launch, "
+        f"gradients bitwise the direct call's")
+    results = {("B5b", "train"): {"ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "max_abs_err": err}}
+    del run, got, ref, saved
+
+    # the model's layout: x, B and C as views of one conv output
+    g = torch.Generator(device=device).manual_seed(10)
+    xbc = torch.randn((Bb, S, H * P + 2 * N), generator=g, device=device)
+    views = (xbc[..., :H * P].reshape(Bb, S, H, P), ops[1], ops[2],
+             xbc[..., H * P:H * P + N], xbc[..., H * P + N:])
+    _, got, _, verr, _ = case("strided", views)
+    copies = tuple(t.contiguous() for t in views)
+    _, _, work = _scan_cuda(*copies, Q)
+    again = _scan_bwd_cuda(*copies, work, dy, dh, Q)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("B5b: strided operands differ from contiguous")
+    log(f"[kernels] B5b strided (x, B, C views of a (Bb, S, "
+        f"{H * P + 2 * N}) conv output, read in place): err / max|plain| "
+        f"{', '.join(f'{k} {r:.2e}' for k, (_, r) in verr.items())}, "
+        f"bitwise equal to contiguous copies")
+    del xbc, views, copies, work, got, again
+
+    cops = ssd_cancelling(torch, device, Bb, S, H, P, N)
+    _, _, _, cerr, _ = case("cancelling", cops)
+    log(f"[kernels] B5b cancelling sums (S={S}): err / max|plain| "
+        f"{', '.join(f'{k} {r:.2e}' for k, (_, r) in cerr.items())} "
+        f"(gate {TOL_SSD})")
+    del ops, cops
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_ssm_train_check(torch, device):
+    """Reduced mamba2-370m (seq 32: 4 chunks of 8), 3 pipelined int8
+    steps, GPU (B5, B5b, B1) against CPU (plain versions)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.ssd_scan.kernel import SCAN, SCAN_BWD
+
+    gpu, cpu, n_good, err, counts = pipelined_check(
+        torch, device, "mamba2-370m", "ssm-train-check")
+    layers = get_arch("mamba2-370m").reduced().n_layers
+    if counts.get(SCAN) != 3 * layers or counts.get(SCAN_BWD) != 3 * layers:
+        raise AssertionError(f"ssm-train-check: launches {counts} in 3 "
+                             f"steps of {layers} 'S' layers")
+    log(f"[ssm-train-check] reduced mamba2-370m, W={W}, seq 32 (4 chunks of "
+        f"8), 3 pipelined int8 steps: GPU vs CPU losses "
+        f"{[round(l, 6) for l in gpu]} vs {[round(l, 6) for l in cpu]}, "
+        f"n_good {n_good}, max |ensemble diff| {err:.3e}; GPU launches "
+        f"{counts}")
+
+
+def ssm_train_argv(steps):
+    """The trainer's flags on the SSM training path: full mamba2-370m,
+    pipelined, int8 wire, W 4, batch 2, seq 512 (4 chunks)."""
+    return ["--arch", "mamba2-370m", "--workers", str(W), "--pipelined",
+            "--wire-format", "int8", "--batch", "2", "--seq",
+            str(SSM_TRAIN_SEQ), "--steps", str(steps), "--log-every", "1"]
+
+
+def phase_ssm_train(torch, device):
+    """``repro_torch.launch.train`` on full mamba2-370m, counters zeroed
+    before and read after — B5 and B5b once per layer a step, B1r/B1a once
+    a step — its steady step time and peak memory; then the forward and
+    backward of one step by CUDA events and a profile of it.  Returns the
+    run's launch counts of B5b."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import gossip as G
+    from repro_torch.core.packing import pack_spec_w, pack_w
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
+    from repro_torch.kernels.ssd_scan.kernel import SCAN, SCAN_BWD
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import packed_loss_and_grad
+    from repro_torch.models.model import init_model
+
+    cfg = get_arch("mamba2-370m")
+    argv = ssm_train_argv(SSM_TRAIN_STEPS)
+    log(f"[ssm-train] python -m repro_torch.launch.train {' '.join(argv)}")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = out["losses"]
+    if len(losses) != SSM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"ssm-train: losses {losses}")
+    want = {SCAN: cfg.n_layers * SSM_TRAIN_STEPS,
+            SCAN_BWD: cfg.n_layers * SSM_TRAIN_STEPS,
+            REDUCE: SSM_TRAIN_STEPS, APPLY: SSM_TRAIN_STEPS}
+    if any(counts.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"ssm-train: launches {counts}, want {want} "
+                             f"in {SSM_TRAIN_STEPS} steps")
+    a_log = out["params"]["scan"]["pos0"]["ssm"]["A_log"]
+    if tuple(a_log.shape) != (W, cfg.n_layers, 32) or \
+            not bool(torch.isfinite(a_log).all()):
+        raise AssertionError(f"ssm-train: final average A_log "
+                             f"{tuple(a_log.shape)} not finite/shaped")
+    median = steady_median(out["step_seconds"])
+    log(f"[ssm-train] launches {counts} over {SSM_TRAIN_STEPS} steps; step "
+        f"seconds {[round(t, 4) for t in out['step_seconds']]} (first "
+        f"includes warm-up); steady median {median * 1e3:.2f} ms; n_good "
+        f"{out['n_good']}; peak memory {peak:.2f} GiB")
+    del out, a_log
+    torch.cuda.empty_cache()
+
+    params = init_model(cfg, 0, device=device)
+    wp = tree_map(lambda x: x.expand((W,) + tuple(x.shape)), params)
+    gcfg = G.GossipConfig(shifts=(1, 2), partial_blocks=4, delay=1,
+                          wire_format="int8")
+    spec = pack_spec_w(wp, block_rows=BLOCK_ROWS,
+                       groups=G.leaf_groups(wp, 4), n_groups=4)
+    packed = pack_w(wp, spec)
+    del params, wp
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (W, 2, SSM_TRAIN_SEQ), device=device,
+        generator=torch.Generator(device=device).manual_seed(0))}
+    fb = lambda: packed_loss_and_grad(cfg, packed, batch, spec)  # noqa: E731
+    t_fb = cuda_ms(fb, 3)
+    log(f"[ssm-train] forward+backward of one step (W={W}, batch 2, seq "
+        f"{SSM_TRAIN_SEQ}, packed gradient): {t_fb:.3f} ms by CUDA events")
+    profile_step(torch, "ssm-train-profile", fb, what="one forward+backward",
+                 group=("B5 + B5b (ssd_scan, ssd_scan_bwd)",
+                        SSD_KERNEL_NAMES + SSD_BWD_NAMES))
+    del packed, batch
+    torch.cuda.empty_cache()
+    return {SCAN_BWD: counts[SCAN_BWD]}
 
 
 def main() -> int:
@@ -1879,7 +2176,8 @@ def main() -> int:
     from repro_torch.kernels.kmeans_assign.kernel import SOURCE as KM_SOURCE
     from repro_torch.kernels.parzen_blend.kernel import APPLY as PZ_APPLY
     from repro_torch.kernels.parzen_blend.kernel import REDUCE as PZ_REDUCE
-    from repro_torch.kernels.ssd_scan.kernel import SCAN
+    from repro_torch.kernels.ssd_scan.kernel import (BWD_SOURCE, SCAN,
+                                                     SCAN_BWD)
     from repro_torch.kernels.ssd_scan.kernel import SOURCE as SSD_SOURCE
 
     set_full_fp32_precision()
@@ -1911,8 +2209,11 @@ def main() -> int:
     phase_kmeans_check(torch, device)
     counts.update(phase_kmeans(torch, device))
     kres.update(phase_ssd_kernel(torch, device))
+    kres.update(phase_ssd_bwd_kernel(torch, device))
     phase_serve_check(torch, device)
     counts.update(phase_serve(torch, device))
+    phase_ssm_train_check(torch, device)
+    counts.update(phase_ssm_train(torch, device))
 
     gb = "src/repro/kernels/gossip_blend/kernel.py"
     km = "src/repro/kernels/kmeans_assign/kernel.py"
@@ -1930,7 +2231,10 @@ def main() -> int:
             ("B6r", PZ_REDUCE, SOURCE, f"{pz}:65", "open"),
             ("B6a", PZ_APPLY, SOURCE, f"{pz}:85", "open"),
             ("B5", SCAN, SSD_SOURCE, "src/repro/kernels/ssd_scan/kernel.py:85",
-             "serve")):
+             "serve"),
+            # no TPU kernel: the reference differentiates ssd_chunked
+            ("B5b", SCAN_BWD, BWD_SOURCE, "src/repro/models/ssm.py:67",
+             "train")):
         r = kres[(tag, case)]
         kernels.append({
             "name": name, "route": "cuda",

@@ -10,6 +10,8 @@ Each kernel package mirrors the reference's Pallas package:
   kmeans_assign  B4, the fused K-Means E/M step (its own source)
   parzen_blend   B6r/B6a, the P=1 gate and blend: two entry points of the
                  gossip-blend source, bound in parzen_blend/kernel.py
+  ssd_scan       B5, the Mamba-2 chunked SSD scan (ssd_scan/csrc/ssd_scan.cu),
+                 and B5b, its backward (ssd_scan/csrc/ssd_scan_bwd.cu)
 
 Build: ``nvcc`` compiles each source into its own shared library under
 ``build/kernels/`` at the repo root (listed in .gitignore) the first time a

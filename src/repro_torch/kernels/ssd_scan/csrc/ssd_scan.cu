@@ -623,6 +623,16 @@ size_t ssd_workspace_floats(int Bb, int S, int H, int P, int N, int Q) {
   return z.cb + z.L + z.st;
 }
 
+// The floats of each part of that workspace, in order: C.B^T, L, h_prev
+// (the backward, ssd_scan_bwd.cu, reads all three).
+void ssd_workspace_parts(int Bb, int S, int H, int P, int N, int Q,
+                         size_t* parts) {
+  const Sizes z = sizes(Bb, S, H, P, N, Q);
+  parts[0] = z.cb;
+  parts[1] = z.L;
+  parts[2] = z.st;
+}
+
 // B5.  x (Bb, S, H, P) at row stride x_row, dt (Bb, S, H), A (Bb, H), B
 // and C (Bb, S, N) at row stride bc_row in; y (Bb, S, H, P), h (Bb, H, N,
 // P) out, contiguous; all f32; ``work`` holds ssd_workspace_floats(...)

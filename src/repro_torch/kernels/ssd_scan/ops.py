@@ -1,4 +1,5 @@
-"""Public wrapper of the SSD-scan kernel (B5): layout + padding glue."""
+"""Public wrapper of the SSD-scan kernels (B5, and B5b under autograd):
+layout + padding glue."""
 from __future__ import annotations
 
 import torch.nn.functional as F
@@ -37,7 +38,9 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
     The kernel reads B and C once per row for all heads — nothing is
     broadcast per head — and reads x, B and C at their row strides: the
     model's views of its conv output go in uncopied
-    (:func:`kernel_operands`)."""
+    (:func:`kernel_operands`).  Differentiable: the padding's ``F.pad``
+    and the views pass their gradients back through autograd, and the scan
+    itself differentiates by B5b on the card (kernel.py)."""
     Bb, S, H, _ = x.shape
     if B.ndim != 4 or B.shape[2] != 1 or C.shape != B.shape:
         raise ValueError(f"B and C must be (Bb, S, 1, N) (one state group), "

@@ -10,6 +10,15 @@ its accumulators), :func:`ssd_chunk_output` — so the CPU tests hold the
 kernel's decomposition itself against the reference: what the wrapper runs
 for CPU tensors and what chip_smoke.py holds the kernel against on the
 card.
+
+:func:`ssd_scan_plain_bwd` is the gradient of the chunked scan (kernel
+B5b), written out in B5b's stages: :func:`ssd_state_walk_bwd` (the state
+passing walked backward), :func:`ssd_chunk_bwd` (per row, chunk and head:
+dx, dt's share from x, the log-decay's adjoint) and :func:`ssd_bc_bwd`
+(dB and dC, per row and chunk, summed over the heads).  The reference has
+no backward kernel: it differentiates its jnp chunked form
+(``models/ssm.py:67 ssd_chunked``) with ``jax.grad``, and this follows
+that gradient, clip ties included (:func:`ddecay`).
 """
 from __future__ import annotations
 
@@ -39,6 +48,18 @@ def ssd_scan_ref(x, dt, A, B, C):
 
 def _decay(v):
     return torch.exp(torch.clamp(v, CLIP, 0.0))
+
+
+def ddecay(v):
+    """d exp(clip(v, CLIP, 0)) / dv as ``jax.grad`` takes it through
+    ``jnp.clip``: exp(v) strictly inside the range, 0 outside, and half
+    of exp(v) at exactly CLIP or 0 (JAX splits a tie of max and min
+    between its operands; ``torch.clamp`` would give all of it)."""
+    e = torch.exp(torch.clamp(v, CLIP, 0.0))
+    inside = (v > CLIP) & (v < 0.0)
+    tie = (v == CLIP) | (v == 0.0)
+    return torch.where(inside, e, torch.where(tie, 0.5 * e,
+                                              torch.zeros_like(e)))
 
 
 def ssd_chunk_prep(dt, A, B, C, chunk: int):
@@ -89,6 +110,20 @@ def ssd_chunk_output(xdt, C, lcum, cb, h_prev):
     return y.reshape(Bb, nc * Q, H, -1)
 
 
+def ssd_scan_plain_saved(x, dt, A, B, C, chunk: int):
+    """:func:`ssd_scan_plain` that also returns what its backward reads:
+    (y, h_final, L (Bb, nc, Q, H), h_prev (Bb, nc, H, N, P))."""
+    Bb, S, H, P = x.shape
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    nc = S // chunk
+    lcum, cb = ssd_chunk_prep(dt, A, B, C, chunk)
+    xdt = (x.reshape(Bb, nc, chunk, H, P)
+           * dt.reshape(Bb, nc, chunk, H)[..., None])
+    h_prev, h = ssd_state_passing(ssd_chunk_states(xdt, B, lcum), lcum)
+    return ssd_chunk_output(xdt, C, lcum, cb, h_prev), h, lcum, h_prev
+
+
 def ssd_scan_plain(x, dt, A, B, C, chunk: int):
     """The chunked scan in the kernel's layout: x (Bb,S,H,P), dt (Bb,S,H),
     A (Bb,H) (one decay rate per batch row and head), B/C (Bb,S,N) shared
@@ -98,12 +133,123 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int):
     stages: L and C·Bᵀ per (row, chunk); the chunk states; the state
     passing; the chunk output.  Returns (y (Bb,S,H,P), h_final
     (Bb,H,N,P))."""
-    Bb, S, H, P = x.shape
-    if S % chunk:
-        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
-    nc = S // chunk
-    lcum, cb = ssd_chunk_prep(dt, A, B, C, chunk)
-    xdt = (x.reshape(Bb, nc, chunk, H, P)
-           * dt.reshape(Bb, nc, chunk, H)[..., None])
-    h_prev, h = ssd_state_passing(ssd_chunk_states(xdt, B, lcum), lcum)
-    return ssd_chunk_output(xdt, C, lcum, cb, h_prev), h
+    return ssd_scan_plain_saved(x, dt, A, B, C, chunk)[:2]
+
+
+# ---------------------------------------------------------------------------
+# the backward (B5b's stages).  Per chunk c, with L the in-chunk cumulative
+# dt·A, xdt = x·dt and dh_c the adjoint of the state after chunk c:
+#   dh_{c-1} = exp(L_Q) dh_c + sum_i exp(L_i) C_i (x) dy_i
+#   dxdt_j   = sum_{i>=j} (C_i.B_j) exp(L_i - L_j) dy_i + exp(L_Q - L_j) B_j.dh_c
+# and each exponent's weight goes into dL: + at its row index, - at its
+# column index.  The diagonal exponents (L_i - L_i, L_Q - L_{Q-1}) are
+# ties whose two halves cancel; they are left out.
+# ---------------------------------------------------------------------------
+
+
+def ssd_state_walk_bwd(dy, C, lcum, dh_final):
+    """Stage (a), per (row, head), chunks in reverse: dh (Bb, nc, H, N, P),
+    the adjoint of the state after each chunk, seeded by ``dh_final``
+    (None: zero).  dy (Bb, S, H, P), C (Bb, S, N), lcum (Bb, nc, Q, H)."""
+    Bb, nc, Q, H = lcum.shape
+    P, N = dy.shape[-1], C.shape[-1]
+    inj = torch.einsum("bcin,bcihp->bchnp", C.reshape(Bb, nc, Q, N),
+                       _decay(lcum)[..., None] * dy.reshape(Bb, nc, Q, H, P))
+    dec = _decay(lcum[:, :, -1])                         # (Bb,nc,H)
+    dh = (dy.new_zeros((Bb, H, N, P)) if dh_final is None else dh_final)
+    out = [None] * nc
+    for c in reversed(range(nc)):
+        out[c] = dh
+        dh = dec[:, c, :, None, None] * dh + inj[:, c]
+    return torch.stack(out, dim=1)
+
+
+def _chunk_terms(x, dt, lcum, dy):
+    """Per (row, chunk, head): xdt (Bb,nc,Q,H,P), dy in chunks, the
+    exponents v_ij = L_i - L_j (Bb,nc,H,Q,Q), G_ij = dy_i.xdt_j and the
+    lower triangle (diagonal included)."""
+    Bb, nc, Q, H = lcum.shape
+    P = x.shape[-1]
+    xdt = (x.reshape(Bb, nc, Q, H, P)
+           * dt.reshape(Bb, nc, Q, H)[..., None])
+    dyc = dy.reshape(Bb, nc, Q, H, P)
+    li = lcum.transpose(2, 3)                            # (Bb,nc,H,Q)
+    v = li[..., :, None] - li[..., None, :]
+    G = torch.einsum("bcihp,bcjhp->bchij", dyc, xdt)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    return xdt, dyc, v, G, tri
+
+
+def ssd_chunk_bwd(x, dt, B, C, lcum, h_prev, dh, dy):
+    """Stage (b), per (row, chunk, head): dx (Bb,S,H,P), dt's share from x
+    (Σ_p dxdt·x, (Bb,S,H)) and dL (Bb,nc,Q,H), the adjoint of the
+    cumulative log-decay."""
+    Bb, nc, Q, H = lcum.shape
+    S, P, N = x.shape[1], x.shape[-1], B.shape[-1]
+    Bc, Cc = B.reshape(Bb, nc, Q, N), C.reshape(Bb, nc, Q, N)
+    xdt, dyc, v, G, tri = _chunk_terms(x, dt, lcum, dy)
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[:, :, None]
+    lq = lcum[:, :, -1:]                                 # (Bb,nc,1,H)
+    BD = torch.einsum("bcjn,bchnp->bcjhp", Bc, dh)       # B_j.dh_c
+    dxdt = (torch.einsum("bchij,bcihp->bcjhp", cb * _decay(v) * tri, dyc)
+            + _decay(lq - lcum)[..., None] * BD)
+    dx = dxdt * dt.reshape(Bb, nc, Q, H)[..., None]
+    ddt_x = (dxdt * x.reshape(Bb, nc, Q, H, P)).sum(-1)
+    # dL: the intra-chunk exponents (strictly below the diagonal) ...
+    dv = cb * G * ddecay(v) * tri.tril(-1)
+    dL = (dv.sum(-1) - dv.sum(-2)).transpose(2, 3)       # (Bb,nc,Q,H)
+    # ... exp(L_i) of C_i.h_prev ...
+    CH = torch.einsum("bcin,bchnp->bcihp", Cc, h_prev)
+    dL = dL + ddecay(lcum) * (dyc * CH).sum(-1)
+    # ... exp(L_Q - L_j) of the chunk state (j < Q - 1) ...
+    ds = ddecay(lq - lcum) * (xdt * BD).sum(-1)
+    ds = ds[:, :, :-1]
+    dL = torch.cat([dL[:, :, :-1] - ds,
+                    dL[:, :, -1:] + ds.sum(2, keepdim=True)], dim=2)
+    # ... and exp(L_Q) of the state passing
+    dL[:, :, -1] += ddecay(lq[:, :, 0]) * (dh * h_prev).sum((-1, -2))
+    return (dx.reshape(Bb, S, H, P), ddt_x.reshape(Bb, S, H), dL)
+
+
+def ssd_bc_bwd(x, dt, B, C, lcum, h_prev, dh, dy):
+    """Stage (c), per (row, chunk), summed over the heads that share B and
+    C: dB, dC (Bb, S, N)."""
+    Bb, nc, Q, H = lcum.shape
+    S, N = x.shape[1], B.shape[-1]
+    Bc, Cc = B.reshape(Bb, nc, Q, N), C.reshape(Bb, nc, Q, N)
+    xdt, dyc, v, G, tri = _chunk_terms(x, dt, lcum, dy)
+    dcb = (_decay(v) * G * tri).sum(2)                   # (Bb,nc,Q,Q)
+    dC = (torch.einsum("bcij,bcjn->bcin", dcb, Bc)
+          + torch.einsum("bcihp,bchnp->bcin",
+                         _decay(lcum)[..., None] * dyc, h_prev))
+    dB = (torch.einsum("bcij,bcin->bcjn", dcb, Cc)
+          + torch.einsum("bcjhp,bchnp->bcjn",
+                         _decay(lcum[:, :, -1:] - lcum)[..., None] * xdt,
+                         dh))
+    return dB.reshape(Bb, S, N), dC.reshape(Bb, S, N)
+
+
+def ssd_dt_a_bwd(dt, A, ddt_x, dL):
+    """Stage (d): dL through the in-chunk cumulative sum to d(dt·A), then
+    ddt = ddt_x + d(dt·A)·A and dA[b, h] = Σ_s d(dt·A)·dt.  Returns (ddt
+    (Bb,S,H), dA (Bb,H))."""
+    Bb, nc, Q, H = dL.shape
+    dla = dL.flip(2).cumsum(2).flip(2).reshape(Bb, nc * Q, H)
+    return ddt_x + dla * A[:, None, :], (dla * dt).sum(1)
+
+
+def ssd_scan_plain_bwd(x, dt, A, B, C, L, h_prev, dy, dh_final, chunk: int):
+    """Gradients of :func:`ssd_scan_plain` (what B5b computes), in its
+    stages.  x, dt, A (Bb,H), B, C as the forward took them; L (Bb, nc, Q,
+    H) and h_prev (Bb, nc, H, N, P) as :func:`ssd_scan_plain_saved` returns
+    them; dy (Bb,S,H,P); dh_final (Bb,H,N,P) or None (zero).  Every clipped
+    exponent passes its gradient by :func:`ddecay`.  Returns (dx, ddt, dA
+    (Bb,H), dB, dC)."""
+    if x.shape[1] % chunk or L.shape[2] != chunk:
+        raise ValueError(f"S={x.shape[1]} and L {tuple(L.shape)} do not "
+                         f"match chunk={chunk}")
+    dh = ssd_state_walk_bwd(dy, C, L, dh_final)
+    dx, ddt_x, dL = ssd_chunk_bwd(x, dt, B, C, L, h_prev, dh, dy)
+    dB, dC = ssd_bc_bwd(x, dt, B, C, L, h_prev, dh, dy)
+    ddt, dA = ssd_dt_a_bwd(dt, A, ddt_x, dL)
+    return dx, ddt, dA, dB, dC

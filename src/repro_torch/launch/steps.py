@@ -75,12 +75,14 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     'sync' (synchronous data-parallel SGD).  inner: 'sgd' | 'momentum' |
     'adam'.  lr_schedule (pipelined only): step -> lr, the consume blend's
     per-round lr operand.
-    Raises NotImplementedError for an arch the port cannot train ('S'
-    layers: the SSD scan has no backward yet).
+    Raises NotImplementedError for an arch the port does not carry
+    (models.blocks.check_supported); 'S' layers train through the SSD
+    scan's backward (kernel B5b on the card), so a batch's seq must be a
+    multiple of cfg.ssm_chunk (models.ssm.apply_ssd raises otherwise).
     """
     from ..optim import adam_update, momentum_update
 
-    M.check_supported(cfg, train=True)
+    M.check_supported(cfg)
 
     gcfg = gcfg or GossipConfig()
     acfg = acfg or ASGDConfig(eps=0.01)

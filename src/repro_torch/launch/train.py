@@ -11,7 +11,10 @@ torch, since the CLI builds ``ASGDConfig(eps, elastic)`` with use_fused
 off, as the reference CLI does).  --algo silent and --algo sync replace
 the gossip round on the pytree and packed engines.  Add ``--device cpu``
 (and ``--reduced`` for the smoke-scale arch) to run on the CPU through the
-kernels' plain versions.
+kernels' plain versions.  Archs with 'S' (mamba-2 SSD) layers train on
+every engine: the SSD scan runs B5 forward and B5b backward on the card
+(``--arch mamba2-370m --seq 512``); --seq must be a multiple of the
+arch's ssm_chunk, as the reference's chunked scan asserts.
 
 --save writes the train state after the last step and --restore resumes
 from such a file at its step, running on to --steps (files of the JAX
@@ -20,9 +23,6 @@ reference's trainer restore too, and the other way round).  --elastic
 passes an all-alive mask to every step, and lets --restore take a file
 saved at another --workers count: the workers are re-seated and the
 restored FIFO stays gated out for the join window.
-
-Not ported yet, and raising with the ROADMAP.md item that carries it:
-archs with 'S' (mamba-2 SSD) layers (SSM training, item 9).
 """
 from __future__ import annotations
 
@@ -166,7 +166,11 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    M.check_supported(cfg, train=True)
+    M.check_supported(cfg)
+    if "S" in cfg.pattern_cycle and args.seq % cfg.ssm_chunk:
+        raise ValueError(f"--seq {args.seq} is not a multiple of "
+                         f"{cfg.name}'s ssm_chunk {cfg.ssm_chunk} (the "
+                         "chunked SSD scan takes whole chunks)")
     W = args.workers
 
     params = M.init_model(cfg, args.seed, device=device)

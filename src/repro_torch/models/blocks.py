@@ -2,11 +2,14 @@
 returning the decode cache) and single-token decode against a cache.
 
 This port carries the 'G' (global attention) layer with the GLU MLP — every
-layer of the dense archs — and, for serving, the 'S' (mamba-2 SSD) layer.
-The reference's other layer types ('L', 'R', 'E'), MoE and
-cross-attention raise NotImplementedError (ROADMAP.md queue A, item 9).
-Sharding hints, sequence parallelism and remat change no values on one
-device and are left out.
+layer of the dense archs — and the 'S' (mamba-2 SSD) layer, for serving and
+for training (the SSD scan differentiates through kernel B5b on the card).
+A 'G' layer at seq >= FLASH_MIN_SEQ with seq % 512 == 0 takes the chunked
+``attention_flash``, as the reference's ``_attend_full`` does; shorter
+ones the dense form.  The reference's other layer types ('L', 'R', 'E'),
+MoE and cross-attention raise NotImplementedError (ROADMAP.md queue A,
+item 9).  Sharding hints, sequence parallelism and remat change no values
+on one device and are left out.
 """
 from __future__ import annotations
 
@@ -14,8 +17,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from .common import (AttnSpec, _project_qkv, attention_decode,
-                     attention_dense, causal_mask, init_attention,
-                     init_kv_cache, make_norm)
+                     attention_dense, attention_flash, causal_mask,
+                     init_attention, init_kv_cache, make_norm)
 from .mlp import apply_mlp, init_mlp
 from .ssm import apply_ssd, apply_ssd_decode, init_ssd, init_ssd_cache
 
@@ -36,15 +39,9 @@ def attn_spec(cfg: ModelConfig) -> AttnSpec:
     )
 
 
-def check_supported(cfg: ModelConfig, *, train: bool = False) -> None:
-    """Raise for any model feature the port does not carry for this use.
-    Serving (``train=False``) admits 'G' and 'S' layers; training admits
-    'G' only — the SSD scan has no backward yet."""
-    if train and "S" in cfg.pattern_cycle:
-        raise NotImplementedError(
-            f"{cfg.name}: training 'S' (mamba-2 SSD) layers needs a backward "
-            "of the SSD scan, not ported yet — ROADMAP.md queue A, item 9 "
-            "(SSM training)")
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for any model feature the port does not carry, for serving
+    and training alike: 'G' and 'S' layers are ported."""
     missing = []
     layer_types = set(cfg.pattern_cycle)
     if not layer_types <= {"G", "S"}:
@@ -121,14 +118,12 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
     cache = None
     if ltype == "G":
         seq = x.shape[2]
-        if seq >= FLASH_MIN_SEQ and seq % 512 == 0:
-            raise NotImplementedError(
-                f"seq {seq} >= {FLASH_MIN_SEQ}: the reference runs its "
-                "chunked attention_flash here, not ported yet — ROADMAP.md "
-                "queue A, item 5")
         spec = attn_spec(cfg)
-        out = attention_dense(p["attn"], spec, h, positions,
-                              causal_mask(positions, positions))
+        if seq >= FLASH_MIN_SEQ and seq % 512 == 0:
+            out = attention_flash(p["attn"], spec, h, positions)
+        else:
+            out = attention_dense(p["attn"], spec, h, positions,
+                                  causal_mask(positions, positions))
         if return_cache:
             # recompute K/V once for the cache, as the reference does
             _, k, v = _project_qkv(p["attn"], spec, h, positions)

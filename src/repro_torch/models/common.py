@@ -8,9 +8,9 @@ serves all W replicas (each matmul is one batched GEMM over W).  A single
 model is W = 1.  Param layouts behind that axis are the reference's (wq
 (D, H, Dh), wo (H, Dh, D), ...), so weights cross one array per leaf.
 
-Attention is plain torch here, as it is jnp in the reference; the
-reference's chunked ``attention_flash`` (taken at seq >= 2048) is not
-ported yet (ROADMAP.md queue A, item 5).
+Attention is plain torch here, as it is jnp in the reference: the dense
+form, and the reference's chunked ``attention_flash`` (online softmax over
+query and key blocks), which models/blocks.py takes at seq >= 2048.
 """
 from __future__ import annotations
 
@@ -178,6 +178,62 @@ def attention_dense(params, spec: AttnSpec, x, positions, mask):
                          torch.full((), -1e30, device=scores.device))
     probs = F.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("wbhqs,wbshk->wbqhk", probs, v)
+    return torch.einsum("wbqhk,whkd->wbqd", out, params["wo"])
+
+
+def attention_flash(params, spec: AttnSpec, x, positions, *,
+                    window: int | None = None,
+                    prefix_len: int | None = None, block_q: int = 512,
+                    block_k: int = 1024):
+    """Causal (optionally sliding-window / prefix) chunked attention, the
+    reference's ``attention_flash`` (models/common.py:206) in its block
+    order: per query block of ``block_q``, key blocks of ``block_k`` with
+    the running (max, sum, acc) online softmax, masked scores at -1e30,
+    out = acc / max(sum, 1e-30).  Every key block is computed, as the
+    reference computes it (a wholly masked one adds exact zeros once a
+    live block has set the running max).  x: (W, B, S, D); positions:
+    (S,).  S must be a multiple of both block sizes (capped at S), as the
+    reference asserts.  The reference's softcap is not carried: the
+    port's AttnSpec has none."""
+    W, B, S, _ = x.shape
+    bq, bk = min(block_q, S), min(block_k, S)
+    if S % bq or S % bk:
+        raise ValueError(f"attention_flash: seq {S} is not a multiple of "
+                         f"block_q {bq} and block_k {bk}")
+    q, k, v = _project_qkv(params, spec, x, positions)
+    H, Dh = spec.n_heads, spec.head_dim
+    # (W, B, H, S, Dh), the reference's per-block layout
+    q, k, v = (t.permute(0, 1, 3, 2, 4)
+               for t in (q, _gqa_expand(k, H), _gqa_expand(v, H)))
+    scale = Dh ** -0.5
+    outs = []
+    for q0 in range(0, S, bq):
+        q_i = q[:, :, :, q0:q0 + bq] * scale
+        qp = positions[q0:q0 + bq]
+        m = torch.full((W, B, H, bq), -math.inf, device=x.device)
+        l = torch.zeros((W, B, H, bq), device=x.device)
+        acc = torch.zeros((W, B, H, bq, Dh), device=x.device)
+        for k0 in range(0, S, bk):
+            k_j, v_j = k[:, :, :, k0:k0 + bk], v[:, :, :, k0:k0 + bk]
+            kp = positions[k0:k0 + bk]
+            s = torch.einsum("wbhqd,wbhkd->wbhqk", q_i, k_j).float()
+            msk = causal_mask(qp, kp)
+            if window is not None:
+                msk = msk & (qp[:, None] - kp[None, :] < window)
+            if prefix_len is not None:
+                msk = msk | (kp[None, :] < prefix_len)
+            s = torch.where(msk, s, torch.full((), -1e30, device=x.device))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = (acc * alpha[..., None]
+                   + torch.einsum("wbhqk,wbhkd->wbhqd", p.to(v_j.dtype),
+                                  v_j).float())
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+        outs.append(out.to(x.dtype))
+    out = torch.cat(outs, dim=3).permute(0, 1, 3, 2, 4)   # (W,B,S,H,Dh)
     return torch.einsum("wbqhk,whkd->wbqd", out, params["wo"])
 
 

@@ -4,7 +4,10 @@ The sequence mixer of mamba2-370m.  The forward pass runs the chunked SSD
 scan through :func:`repro_torch.kernels.ssd_scan.ssd_scan` — kernel B5 on
 the card, its plain version on the CPU — where the reference runs its jnp
 chunked form :func:`ssd_chunked` (kept here for the tests; the reference's
-own tests hold the two forms together).  Decode is one recurrence step in
+own tests hold the two forms together).  Training differentiates the scan
+through its backward, kernel B5b on the card (the plain backward on the
+CPU), where the reference takes ``jax.grad`` of its chunked form; the rest
+of the mixer is autograd of plain torch.  Decode is one recurrence step in
 plain torch, as in the reference.
 
 Worker batching as in common.py: params carry a leading worker axis (W,
@@ -113,8 +116,8 @@ def ssd_chunked(x, dt, A, B, C, chunk):
 
 def apply_ssd(params, x_in, *, chunk=64, head_dim=64, state=128,
               n_groups=1):
-    """Full mamba-2 mixer: in_proj -> conv -> SSD (kernel B5) -> gated norm
-    -> out_proj, on W replicas.  x_in: (W,B,S,D).  Returns (y (W,B,S,D),
+    """Full mamba-2 mixer: in_proj -> conv -> SSD (kernel B5; B5b under
+    autograd) -> gated norm -> out_proj, on W replicas.  x_in: (W,B,S,D).  Returns (y (W,B,S,D),
     final SSD state (W,B,H,N,P)).  S % chunk must be 0, as the reference's
     ``ssd_chunked`` asserts (the kernel wrapper could pad; the reference's
     model does not)."""

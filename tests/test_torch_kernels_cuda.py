@@ -46,8 +46,14 @@ from repro_torch.kernels.parzen_blend.ref import (parzen_apply_plain,
                                                   parzen_blend_ref,
                                                   parzen_reduce_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_chunked
+from repro_torch.kernels.ssd_scan.kernel import BWD_SOURCE as SSD_BWD_SOURCE
 from repro_torch.kernels.ssd_scan.kernel import SOURCE as SSD_SOURCE
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
+from repro_torch.kernels.ssd_scan.kernel import (SCAN, SCAN_BWD,
+                                                 _scan_bwd_cuda, _scan_cuda,
+                                                 saved_for_backward)
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_bwd, ssd_scan_plain,
+                                              ssd_scan_plain_bwd,
+                                              ssd_state_walk_bwd)
 
 W, R, LANE, BR = 4, 2624, 512, 64
 EPS, LR, ALPHA = 0.05, 0.07, 0.3
@@ -112,7 +118,8 @@ def test_kmeans_source_builds_apart_and_names_what_it_replaces():
     """B4 has its own source and library; B6 builds from the gossip-blend
     source (its two entry points above)."""
     assert KM_SOURCE in K.kernel_sources()
-    assert set(K.kernel_sources()) == {SOURCE, KM_SOURCE, SSD_SOURCE}
+    assert set(K.kernel_sources()) == {SOURCE, KM_SOURCE, SSD_SOURCE,
+                                       SSD_BWD_SOURCE}
     assert K.library_path(KM_SOURCE).name.startswith("kmeans_assign-")
     text = pathlib.Path(KM_SOURCE).read_text()
     for name in ("kmeans_assign_pallas", "Bound:", "int kmeans_assign(",
@@ -414,6 +421,17 @@ def test_ssd_source_builds_apart_and_names_what_it_replaces():
         assert name in text
 
 
+def test_ssd_bwd_source_builds_apart_and_names_what_it_differentiates():
+    """B5b, the scan's backward, has its own source and library; it names
+    the reference function whose jax.grad it computes, and its bound."""
+    assert SSD_BWD_SOURCE in K.kernel_sources()
+    assert K.library_path(SSD_BWD_SOURCE).name.startswith("ssd_scan_bwd-")
+    text = pathlib.Path(SSD_BWD_SOURCE).read_text()
+    for name in ("ssd_chunked", "jax.grad", "Bound:", "int ssd_scan_bwd(",
+                 "ssd_workspace_parts"):
+        assert name in text
+
+
 def ssd_operands(Bb, S, H, P, N, device, seed=0):
     """Inputs drawn like the model's: dt = softplus(.), A = -exp(A_log)
     over linspace(1, 16) per row (rows differ), B and C shared by the
@@ -547,7 +565,66 @@ def test_cuda_ssd_scan_rejects_bad_operands(cuda_device):
                          .transpose(1, 2), C, 64)
     with pytest.raises(ValueError, match="several devices"):
         ssd_scan_chunked(x, dt, A.cpu(), B, C, 64)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ssd_scan_chunked(x.requires_grad_(), dt, A, B, C, 64)
+    # an operand that requires grad differentiates (B5b), no longer raises
+    xg = x.clone().requires_grad_()
+    y, _ = ssd_scan_chunked(xg, dt, A, B, C, 64)
+    (gx,) = torch.autograd.grad(y.sum(), xg)
+    assert gx.shape == x.shape and bool(torch.isfinite(gx).all())
     with torch.no_grad():
         ssd_scan_chunked(x, dt, A, B, C, 64)
+
+
+def da_term_scale(ops, saved, dy, dh):
+    """Σ_s |d(dt·A)_s · dt_s| per (row, head), in f64: the size of the terms
+    that dA[b, h] = Σ_s d(dt·A)_s dt_s sums.  Those terms cancel — dA can be
+    orders of magnitude below them — so an f32 sum in any order errs
+    relative to the terms, not to dA (the plain version against itself in
+    f64 shows it)."""
+    x, dt, A, B, C = (t.double() for t in ops)
+    L, h_prev = (t.double() for t in saved)
+    dy = dy.double()
+    dh = None if dh is None else dh.double()
+    dhs = ssd_state_walk_bwd(dy, C, L, dh)
+    _, _, dL = ssd_chunk_bwd(x, dt, B, C, L, h_prev, dhs, dy)
+    Bb, nc, Q, H = dL.shape
+    dla = dL.flip(2).cumsum(2).flip(2).reshape(Bb, nc * Q, H)
+    return (dla.abs() * dt).sum(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bb,S,H,P,N,chunk", [
+    (2, 64, 3, 16, 16, 32), (2, 40, 3, 16, 16, 8),   # chunk 8: reduced mamba2
+    (2, 96, 5, 72, 40, 48),       # two P-tiles, a padded band, Q % 32 != 0
+    (1, 256, 2, 128, 128, 128)])
+def test_cuda_ssd_scan_backward_matches_plain(cuda_device, Bb, S, H, P, N,
+                                              chunk):
+    """B5b against the plain backward on B5's saved L and h_prev: dx, ddt,
+    dB and dC within 1e-4 of their largest magnitude, dA within 1e-4 of
+    the size of the terms it sums (da_term_scale), with and without d
+    h_final, bitwise repeatable; through autograd one B5 and one B5b
+    launch, the direct call's gradients bitwise."""
+    ops = ssd_operands(Bb, S, H, P, N, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    dy = torch.randn((Bb, S, H, P), generator=g, device=cuda_device)
+    dh = torch.randn((Bb, H, N, P), generator=g, device=cuda_device)
+    _, _, work = _scan_cuda(*ops, chunk)
+    saved = saved_for_backward(work, ops[0], ops[3], chunk)
+    for dhv in (dh, None):
+        got = _scan_bwd_cuda(*ops, work, dy, dhv, chunk)
+        ref = ssd_scan_plain_bwd(*ops, *saved, dy, dhv, chunk)
+        for i, (a, b) in enumerate(zip(got, ref)):
+            if i == 2:      # dA
+                err = float((a - b).abs().max())
+                scale = float(da_term_scale(ops, saved, dy, dhv).max())
+                assert err <= 1e-4 * scale, (err, scale)
+            else:
+                assert_near(a, b)
+        again = _scan_bwd_cuda(*ops, work, dy, dhv, chunk)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ins = [t.clone().requires_grad_() for t in ops]
+    K.reset_launch_counts()
+    y, h = ssd_scan_chunked(*ins, chunk)
+    auto = torch.autograd.grad([y, h], ins, [dy, dh])
+    assert K.launch_counts() == {SCAN: 1, SCAN_BWD: 1}
+    got = _scan_bwd_cuda(*ops, work, dy, dh, chunk)
+    assert all(torch.equal(a, b) for a, b in zip(auto, got))
