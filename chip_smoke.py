@@ -69,7 +69,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (B5's saved L and h_prev): a random input, x, B and C as views of a
      conv output (bitwise the contiguous copies' gradients) and cancelling
      sums; every gradient within 1e-4 of its largest magnitude, bitwise
-     repeatable; its time, bound and stages; through autograd, one B5 and
+     repeatable; its time against both bounds (tensor cores in split TF32,
+     f32 SIMT) and its stages' device times; through autograd, one B5 and
      one B5b launch;
  14. [serve-check] reduced mamba2-370m and smollm-135m from the same
      CPU-made weights, GPU against CPU: prefill and 4 decode steps' logits,
@@ -1904,7 +1905,7 @@ def phase_serve(torch, device):
 # ---------------------------------------------------------------------------
 
 SSD_TRAIN_SHAPE = (8, 512, 32, 64, 128, 128)   # W 4 x batch 2, seq 512
-SSD_BWD_NAMES = ("walk_bwd", "dx_bwd", "bc_bwd", "final_bwd")  # B5b's stages
+SSD_BWD_NAMES = ("walk_bwd", "head_bwd", "bc_finish", "final_bwd")  # B5b's
 GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
 SSM_TRAIN_STEPS, SSM_TRAIN_SEQ = 8, 512
 
@@ -2009,25 +2010,35 @@ def phase_ssd_bwd_kernel(torch, device):
     ms = cuda_ms(run, 20)
     plain_ms = cuda_ms(lambda: ssd_scan_plain_bwd(*ops, *saved, dy, dh, Q),
                        3)
+    # the kernel's route: three TF32 products for each product on the tensor
+    # cores (split TF32, as B5's), beside the f32 SIMT bound of the same work
     n_bytes, n_flops = ssd_bwd_work(Bb, S, H, P, N, Q)
-    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    simt_ms, _ = bound_ms(n_bytes, n_flops)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    tc_ms = max(t_bytes, 3 * n_flops / TF32_FLOP_PER_S * 1e3)
     stages = []
     for name in SSD_BWD_NAMES:
+        # one launch a call: ms a launch over the launches the trace kept
+        # (a session may drop one of its events)
         dev = device_ms(torch, run, (name,), 5)
-        stages.append(f"{name} "
-                      + ("not traced" if dev is None else f"{dev[0]:.4f}"))
+        stages.append(f"{name} " + ("not traced" if dev is None
+                                    else f"{dev[0] / dev[1]:.4f}"))
     err = max(e for e, _ in errs.values())
     log(f"[kernels] B5b Bb={Bb} S={S} H={H} P={P} N={N} chunk={Q}: kernel "
         f"{ms:.4f} ms ({_bwd_library().ssd_bwd_launches()} device launches "
         f"a call: {', '.join(stages)} ms of device time), plain "
-        f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
-        f"{n_flops / 1e9:.2f} GFLOP of f32 SIMT, {n_bytes / 1e9:.3f} GB), "
-        f"{b_ms / ms:.1%} of it; err / max|plain| "
+        f"{plain_ms:.4f} ms; bound {tc_ms:.4f} ms on the tensor cores in "
+        f"split TF32 (3 x {n_flops / 1e9:.2f} GFLOP of TF32), "
+        f"{tc_ms / ms:.1%} of it; {simt_ms:.4f} ms in f32 SIMT, "
+        f"{simt_ms / ms:.1%} of it; bytes {n_bytes / 1e9:.3f} GB, "
+        f"{t_bytes:.4f} ms; err / max|plain| "
         f"{', '.join(f'{k} {r:.2e}' for k, (_, r) in errs.items())}; "
         f"bitwise repeatable; through autograd: 1 B5 + 1 B5b launch, "
         f"gradients bitwise the direct call's")
     results = {("B5b", "train"): {"ms": ms, "plain_ms": plain_ms,
-                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "bound_ms": tc_ms,
+                                  "bound_by": ("operations" if tc_ms > t_bytes
+                                               else "bytes"),
                                   "max_abs_err": err}}
     del run, got, ref, saved
 

@@ -11,11 +11,15 @@ Each kernel package mirrors the reference's Pallas package:
   parzen_blend   B6r/B6a, the P=1 gate and blend: two entry points of the
                  gossip-blend source, bound in parzen_blend/kernel.py
   ssd_scan       B5, the Mamba-2 chunked SSD scan (ssd_scan/csrc/ssd_scan.cu),
-                 and B5b, its backward (ssd_scan/csrc/ssd_scan_bwd.cu)
+                 and B5b, its backward (ssd_scan/csrc/ssd_scan_bwd.cu); both
+                 include the split-TF32 helpers of ssd_scan/csrc/tf32_mma.cuh
 
 Build: ``nvcc`` compiles each source into its own shared library under
 ``build/kernels/`` at the repo root (listed in .gitignore) the first time a
-wrapper meets a CUDA tensor, and ``ctypes`` loads it.  Nothing is compiled
+wrapper meets a CUDA tensor, and ``ctypes`` loads it.  A library's name
+holds a hash of its source, of the headers the source includes from its
+own directory (:func:`local_headers`) and of the flags, so an edit to any
+of them builds anew.  Nothing is compiled
 at import: the CPU tests import every module on a machine without nvcc.
 :func:`build_all` starts one nvcc per source, all at once.
 
@@ -30,6 +34,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import subprocess
 import threading
 
@@ -77,11 +82,31 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def local_headers(source: pathlib.Path) -> list[pathlib.Path]:
+    """The headers ``source`` includes by ``#include "name"`` from its own
+    directory, and those they include in turn, sorted."""
+    found, todo = set(), [pathlib.Path(source)]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_bytes()):
+            path = pathlib.Path(source).parent / name.decode()
+            if path.is_file() and path not in found:
+                found.add(path)
+                todo.append(path)
+    return sorted(found)
+
+
 def library_path(source: pathlib.Path) -> pathlib.Path:
-    """Build output of ``source``, keyed by its content and the flags."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    """Build output of ``source``, keyed by its content, the content of the
+    headers it includes from its own directory, and the flags."""
+    source = pathlib.Path(source)
+    h = hashlib.sha256(source.read_bytes())
+    for header in local_headers(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(sources=None) -> dict:

@@ -13,12 +13,13 @@ card.
 
 :func:`ssd_scan_plain_bwd` is the gradient of the chunked scan (kernel
 B5b), written out in B5b's stages: :func:`ssd_state_walk_bwd` (the state
-passing walked backward), :func:`ssd_chunk_bwd` (per row, chunk and head:
-dx, dt's share from x, the log-decay's adjoint) and :func:`ssd_bc_bwd`
-(dB and dC, per row and chunk, summed over the heads).  The reference has
-no backward kernel: it differentiates its jnp chunked form
-(``models/ssm.py:67 ssd_chunked``) with ``jax.grad``, and this follows
-that gradient, clip ties included (:func:`ddecay`).
+passing walked backward), :func:`ssd_head_group_bwd` (per row, chunk and
+head: dx, dt's share from x, the log-decay's adjoint, and per group of
+heads the partial sums that dB and dC need) and :func:`ssd_bc_finish_bwd`
+(per row and chunk: the groups' partials added in order, then dB and dC).
+The reference has no backward kernel: it differentiates its jnp chunked
+form (``models/ssm.py:67 ssd_chunked``) with ``jax.grad``, and this
+follows that gradient, clip ties included (:func:`ddecay`).
 """
 from __future__ import annotations
 
@@ -164,69 +165,84 @@ def ssd_state_walk_bwd(dy, C, lcum, dh_final):
     return torch.stack(out, dim=1)
 
 
-def _chunk_terms(x, dt, lcum, dy):
-    """Per (row, chunk, head): xdt (Bb,nc,Q,H,P), dy in chunks, the
-    exponents v_ij = L_i - L_j (Bb,nc,H,Q,Q), G_ij = dy_i.xdt_j and the
-    lower triangle (diagonal included)."""
+HEAD_GROUP = 8   # heads a block of B5b's head stage walks (GH in the source)
+
+
+def _group_sums(t, group):
+    """t (Bb, nc, H, ...) -> (Bb, nc, ceil(H / group), ...): the heads of
+    each group of ``group`` consecutive heads added in order, as B5b's head
+    stage adds them."""
+    H = t.shape[2]
+    out = []
+    for h0 in range(0, H, group):
+        s = t[:, :, h0]
+        for h in range(h0 + 1, min(H, h0 + group)):
+            s = s + t[:, :, h]
+        out.append(s)
+    return torch.stack(out, dim=2)
+
+
+def ssd_head_group_bwd(x, dt, B, C, lcum, h_prev, dh, dy, group=HEAD_GROUP):
+    """Stage (b), per (row, chunk, head), the heads in groups of ``group``:
+    with G = dy·xdtᵀ over the lower triangle,
+      dxdt = (C·Bᵀ ∘ E ∘ tril)ᵀ·dy + diag(E(L_Q − L))·B·dh_c  -> dx, Σ_p dxdt·x
+      U_C  = dy·h_prevᵀ,  U_B = xdt·dh_cᵀ                        (Q × N)
+    and the head's dL terms: the row sums (+) and column sums (−) of
+    C·Bᵀ ∘ G ∘ E′ below the diagonal, E′(L_i)·C_i·U_C,i, −E′(L_Q − L_j)·
+    B_j·U_B,j (j < Q − 1; their sum to dL_{Q−1}) and E′(L_Q)·<dh_c,
+    h_prev>.  Per group, the heads added in order: E ∘ G ∘ tril, diag(E(L))
+    ·U_C and diag(E(L_Q − L))·U_B.  Returns (dx (Bb,S,H,P), Σ_p dxdt·x
+    (Bb,S,H), dL (Bb,nc,Q,H), (E∘G (Bb,nc,ng,Q,Q), U_C, U_B
+    (Bb,nc,ng,Q,N))), ng = ceil(H / group)."""
     Bb, nc, Q, H = lcum.shape
-    P = x.shape[-1]
+    S, P, N = x.shape[1], x.shape[-1], B.shape[-1]
+    Bc, Cc = B.reshape(Bb, nc, Q, N), C.reshape(Bb, nc, Q, N)
     xdt = (x.reshape(Bb, nc, Q, H, P)
            * dt.reshape(Bb, nc, Q, H)[..., None])
     dyc = dy.reshape(Bb, nc, Q, H, P)
     li = lcum.transpose(2, 3)                            # (Bb,nc,H,Q)
-    v = li[..., :, None] - li[..., None, :]
-    G = torch.einsum("bcihp,bcjhp->bchij", dyc, xdt)
+    lq = li[..., -1:]                                    # (Bb,nc,H,1)
+    v = li[..., :, None] - li[..., None, :]              # (Bb,nc,H,Q,Q)
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    return xdt, dyc, v, G, tri
-
-
-def ssd_chunk_bwd(x, dt, B, C, lcum, h_prev, dh, dy):
-    """Stage (b), per (row, chunk, head): dx (Bb,S,H,P), dt's share from x
-    (Σ_p dxdt·x, (Bb,S,H)) and dL (Bb,nc,Q,H), the adjoint of the
-    cumulative log-decay."""
-    Bb, nc, Q, H = lcum.shape
-    S, P, N = x.shape[1], x.shape[-1], B.shape[-1]
-    Bc, Cc = B.reshape(Bb, nc, Q, N), C.reshape(Bb, nc, Q, N)
-    xdt, dyc, v, G, tri = _chunk_terms(x, dt, lcum, dy)
     cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[:, :, None]
-    lq = lcum[:, :, -1:]                                 # (Bb,nc,1,H)
-    BD = torch.einsum("bcjn,bchnp->bcjhp", Bc, dh)       # B_j.dh_c
-    dxdt = (torch.einsum("bchij,bcihp->bcjhp", cb * _decay(v) * tri, dyc)
-            + _decay(lq - lcum)[..., None] * BD)
+    G = torch.einsum("bcihp,bcjhp->bchij", dyc, xdt) * tri
+    BD = torch.einsum("bcjn,bchnp->bchjp", Bc, dh)       # B_j.dh_c
+    dxdt = (torch.einsum("bchij,bcihp->bchjp", cb * _decay(v) * tri, dyc)
+            + _decay(lq - li)[..., None] * BD)           # (Bb,nc,H,Q,P)
+    dxdt = dxdt.transpose(2, 3)                          # (Bb,nc,Q,H,P)
     dx = dxdt * dt.reshape(Bb, nc, Q, H)[..., None]
     ddt_x = (dxdt * x.reshape(Bb, nc, Q, H, P)).sum(-1)
+    uc = torch.einsum("bcihp,bchnp->bchin", dyc, h_prev)
+    ub = torch.einsum("bcjhp,bchnp->bchjn", xdt, dh)
     # dL: the intra-chunk exponents (strictly below the diagonal) ...
     dv = cb * G * ddecay(v) * tri.tril(-1)
-    dL = (dv.sum(-1) - dv.sum(-2)).transpose(2, 3)       # (Bb,nc,Q,H)
-    # ... exp(L_i) of C_i.h_prev ...
-    CH = torch.einsum("bcin,bchnp->bcihp", Cc, h_prev)
-    dL = dL + ddecay(lcum) * (dyc * CH).sum(-1)
-    # ... exp(L_Q - L_j) of the chunk state (j < Q - 1) ...
-    ds = ddecay(lq - lcum) * (xdt * BD).sum(-1)
-    ds = ds[:, :, :-1]
-    dL = torch.cat([dL[:, :, :-1] - ds,
-                    dL[:, :, -1:] + ds.sum(2, keepdim=True)], dim=2)
-    # ... and exp(L_Q) of the state passing
-    dL[:, :, -1] += ddecay(lq[:, :, 0]) * (dh * h_prev).sum((-1, -2))
-    return (dx.reshape(Bb, S, H, P), ddt_x.reshape(Bb, S, H), dL)
+    dL = dv.sum(-1) - dv.sum(-2)                         # (Bb,nc,H,Q)
+    # ... E(L_i) of C_i.h_prev ...
+    dL = dL + ddecay(li) * (Cc[:, :, None] * uc).sum(-1)
+    # ... E(L_Q - L_j) of the chunk state (j < Q - 1) ...
+    ds = (ddecay(lq - li) * (Bc[:, :, None] * ub).sum(-1))[..., :-1]
+    dL = torch.cat([dL[..., :-1] - ds,
+                    dL[..., -1:] + ds.sum(-1, keepdim=True)], dim=-1)
+    # ... and E(L_Q) of the state passing
+    dL[..., -1] += ddecay(lq[..., 0]) * (dh * h_prev).sum((-1, -2))
+    parts = (_group_sums(_decay(v) * G, group),
+             _group_sums(_decay(li)[..., None] * uc, group),
+             _group_sums(_decay(lq - li)[..., None] * ub, group))
+    return (dx.reshape(Bb, S, H, P), ddt_x.reshape(Bb, S, H),
+            dL.transpose(2, 3), parts)
 
 
-def ssd_bc_bwd(x, dt, B, C, lcum, h_prev, dh, dy):
-    """Stage (c), per (row, chunk), summed over the heads that share B and
-    C: dB, dC (Bb, S, N)."""
-    Bb, nc, Q, H = lcum.shape
-    S, N = x.shape[1], B.shape[-1]
+def ssd_bc_finish_bwd(B, C, parts):
+    """Stage (c), per (row, chunk): the head groups' partials added in
+    order, then dC = Dcb·B + U_C and dB = Dcbᵀ·C + U_B, Dcb = Σ_h E ∘ G ∘
+    tril.  ``parts`` as :func:`ssd_head_group_bwd` returns them.  Returns
+    (dB, dC) (Bb, S, N)."""
+    dcb, uc, ub = (_group_sums(t, t.shape[2]).squeeze(2) for t in parts)
+    Bb, nc, Q, N = uc.shape
     Bc, Cc = B.reshape(Bb, nc, Q, N), C.reshape(Bb, nc, Q, N)
-    xdt, dyc, v, G, tri = _chunk_terms(x, dt, lcum, dy)
-    dcb = (_decay(v) * G * tri).sum(2)                   # (Bb,nc,Q,Q)
-    dC = (torch.einsum("bcij,bcjn->bcin", dcb, Bc)
-          + torch.einsum("bcihp,bchnp->bcin",
-                         _decay(lcum)[..., None] * dyc, h_prev))
-    dB = (torch.einsum("bcij,bcin->bcjn", dcb, Cc)
-          + torch.einsum("bcjhp,bchnp->bcjn",
-                         _decay(lcum[:, :, -1:] - lcum)[..., None] * xdt,
-                         dh))
-    return dB.reshape(Bb, S, N), dC.reshape(Bb, S, N)
+    dC = torch.einsum("bcij,bcjn->bcin", dcb, Bc) + uc
+    dB = torch.einsum("bcij,bcin->bcjn", dcb, Cc) + ub
+    return dB.reshape(Bb, nc * Q, N), dC.reshape(Bb, nc * Q, N)
 
 
 def ssd_dt_a_bwd(dt, A, ddt_x, dL):
@@ -249,7 +265,8 @@ def ssd_scan_plain_bwd(x, dt, A, B, C, L, h_prev, dy, dh_final, chunk: int):
         raise ValueError(f"S={x.shape[1]} and L {tuple(L.shape)} do not "
                          f"match chunk={chunk}")
     dh = ssd_state_walk_bwd(dy, C, L, dh_final)
-    dx, ddt_x, dL = ssd_chunk_bwd(x, dt, B, C, L, h_prev, dh, dy)
-    dB, dC = ssd_bc_bwd(x, dt, B, C, L, h_prev, dh, dy)
+    dx, ddt_x, dL, parts = ssd_head_group_bwd(x, dt, B, C, L, h_prev, dh,
+                                              dy)
+    dB, dC = ssd_bc_finish_bwd(B, C, parts)
     ddt, dA = ssd_dt_a_bwd(dt, A, ddt_x, dL)
     return dx, ddt, dA, dB, dC

@@ -51,7 +51,8 @@ from repro_torch.kernels.ssd_scan.kernel import SOURCE as SSD_SOURCE
 from repro_torch.kernels.ssd_scan.kernel import (SCAN, SCAN_BWD,
                                                  _scan_bwd_cuda, _scan_cuda,
                                                  saved_for_backward)
-from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_bwd, ssd_scan_plain,
+from repro_torch.kernels.ssd_scan.ref import (HEAD_GROUP, ssd_head_group_bwd,
+                                              ssd_scan_plain,
                                               ssd_scan_plain_bwd,
                                               ssd_state_walk_bwd)
 
@@ -423,13 +424,21 @@ def test_ssd_source_builds_apart_and_names_what_it_replaces():
 
 def test_ssd_bwd_source_builds_apart_and_names_what_it_differentiates():
     """B5b, the scan's backward, has its own source and library; it names
-    the reference function whose jax.grad it computes, and its bound."""
+    the reference function whose jax.grad it computes, and its bound.  Its
+    products run on mma.sync from the header it shares with B5, and its
+    head groups are the plain twin's (ref.HEAD_GROUP)."""
     assert SSD_BWD_SOURCE in K.kernel_sources()
     assert K.library_path(SSD_BWD_SOURCE).name.startswith("ssd_scan_bwd-")
     text = pathlib.Path(SSD_BWD_SOURCE).read_text()
     for name in ("ssd_chunked", "jax.grad", "Bound:", "int ssd_scan_bwd(",
-                 "ssd_workspace_parts"):
+                 "ssd_workspace_parts", '#include "tf32_mma.cuh"',
+                 f"constexpr int GH = {HEAD_GROUP};"):
         assert name in text
+    header = SSD_BWD_SOURCE.parent / "tf32_mma.cuh"
+    assert "mma.sync" in header.read_text()
+    assert '#include "tf32_mma.cuh"' in pathlib.Path(SSD_SOURCE).read_text()
+    assert K.local_headers(SSD_BWD_SOURCE) == [header]
+    assert K.local_headers(SSD_SOURCE) == [header]
 
 
 def ssd_operands(Bb, S, H, P, N, device, seed=0):
@@ -585,7 +594,7 @@ def da_term_scale(ops, saved, dy, dh):
     dy = dy.double()
     dh = None if dh is None else dh.double()
     dhs = ssd_state_walk_bwd(dy, C, L, dh)
-    _, _, dL = ssd_chunk_bwd(x, dt, B, C, L, h_prev, dhs, dy)
+    _, _, dL, _ = ssd_head_group_bwd(x, dt, B, C, L, h_prev, dhs, dy)
     Bb, nc, Q, H = dL.shape
     dla = dL.flip(2).cumsum(2).flip(2).reshape(Bb, nc * Q, H)
     return (dla.abs() * dt).sum(1)
@@ -628,3 +637,57 @@ def test_cuda_ssd_scan_backward_matches_plain(cuda_device, Bb, S, H, P, N,
     assert K.launch_counts() == {SCAN: 1, SCAN_BWD: 1}
     got = _scan_bwd_cuda(*ops, work, dy, dh, chunk)
     assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+def assert_bwd_near(ops, saved, dy, dh, got, ref):
+    """dx, ddt, dB and dC within 1e-4 of their largest magnitude, dA within
+    1e-4 of the size of the terms it sums (da_term_scale), all finite."""
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert bool(torch.isfinite(a).all())
+        if i == 2:      # dA
+            err = float((a - b).abs().max())
+            scale = float(da_term_scale(ops, saved, dy, dh).max())
+            assert err <= 1e-4 * scale, (err, scale)
+        else:
+            assert_near(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bb,S,H,P,N,chunk", [
+    (1, 96, 3, 8, 5, 96),            # Q 96, N 5: neither a tile multiple
+    (1, 64, 2, 128, 16, 8),          # Q 8, P 128: two P-tiles, restaged
+    (2, 96, 2, 5, 7, 32)])           # P 5, N 7: 4-byte copies
+def test_cuda_ssd_scan_backward_ragged_tensor_core_tiles(cuda_device, Bb, S,
+                                                         H, P, N, chunk):
+    """B5b with Q, N and P off the 16 x 8 x 8 tensor-core tiles (padded with
+    zeros in shared memory, never in device memory) against the plain
+    backward, bitwise repeatable."""
+    ops = ssd_operands(Bb, S, H, P, N, cuda_device, seed=S + N)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    dy = torch.randn((Bb, S, H, P), generator=g, device=cuda_device)
+    dh = torch.randn((Bb, H, N, P), generator=g, device=cuda_device)
+    _, _, work = _scan_cuda(*ops, chunk)
+    saved = saved_for_backward(work, ops[0], ops[3], chunk)
+    got = _scan_bwd_cuda(*ops, work, dy, dh, chunk)
+    assert_bwd_near(ops, saved, dy, dh, got,
+                    ssd_scan_plain_bwd(*ops, *saved, dy, dh, chunk))
+    again = _scan_bwd_cuda(*ops, work, dy, dh, chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_backward_keeps_f32_accuracy_where_sums_cancel(
+        cuda_device):
+    """B5b's split-TF32 products on cancelling sums at the mamba2-370m
+    training shape (Bb 8, S 512, H 32, P 64, N 128, chunk 128): every
+    gradient within the gate, dA to the size of its terms."""
+    Bb, S, H, P, N, chunk = 8, 512, 32, 64, 128, 128
+    ops = cancelling_operands(Bb, S, H, P, N, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    dy = torch.randn((Bb, S, H, P), generator=g, device=cuda_device)
+    dh = torch.randn((Bb, H, N, P), generator=g, device=cuda_device)
+    _, _, work = _scan_cuda(*ops, chunk)
+    saved = saved_for_backward(work, ops[0], ops[3], chunk)
+    got = _scan_bwd_cuda(*ops, work, dy, dh, chunk)
+    assert_bwd_near(ops, saved, dy, dh, got,
+                    ssd_scan_plain_bwd(*ops, *saved, dy, dh, chunk))

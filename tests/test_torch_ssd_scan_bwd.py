@@ -22,10 +22,15 @@ import torch
 
 from repro.models.ssm import ssd_chunked
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.kernels.ssd_scan.ref import (ddecay, ssd_scan_plain,
+from repro_torch.kernels.ssd_scan.ref import (HEAD_GROUP, _decay, ddecay,
+                                              ssd_bc_finish_bwd,
+                                              ssd_dt_a_bwd,
+                                              ssd_head_group_bwd,
+                                              ssd_scan_plain,
                                               ssd_scan_plain_bwd,
                                               ssd_scan_plain_saved,
-                                              ssd_scan_ref)
+                                              ssd_scan_ref,
+                                              ssd_state_walk_bwd)
 
 TOL = 1e-4
 NAMES = ("dx", "ddt", "dA", "dB", "dC")
@@ -173,3 +178,74 @@ def test_padded_and_strided_operands_differentiate():
     seq = run(ssd_scan_ref)
     for a, b in zip(ours, seq):
         assert_close(a.numpy(), b.numpy(), "grad")
+
+
+def head_walk_bwd(x, dt, B, C, L, h_prev, dh, dy):
+    """The per-(row, chunk) head walk of the first backward kernel: every
+    head's dx, Σ_p dxdt·x and dL, then dB and dC with the heads summed in
+    one reduction.  Returns (dx, ddt_x, dL, dB, dC)."""
+    Bb, nc, Q, H = L.shape
+    S, P, N = x.shape[1], x.shape[-1], B.shape[-1]
+    Bc, Cc = B.reshape(Bb, nc, Q, N), C.reshape(Bb, nc, Q, N)
+    xdt = x.reshape(Bb, nc, Q, H, P) * dt.reshape(Bb, nc, Q, H)[..., None]
+    dyc = dy.reshape(Bb, nc, Q, H, P)
+    li = L.transpose(2, 3)
+    v = li[..., :, None] - li[..., None, :]
+    G = torch.einsum("bcihp,bcjhp->bchij", dyc, xdt)
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[:, :, None]
+    lq = L[:, :, -1:]
+    BD = torch.einsum("bcjn,bchnp->bcjhp", Bc, dh)
+    dxdt = (torch.einsum("bchij,bcihp->bcjhp", cb * _decay(v) * tri, dyc)
+            + _decay(lq - L)[..., None] * BD)
+    dx = dxdt * dt.reshape(Bb, nc, Q, H)[..., None]
+    ddt_x = (dxdt * x.reshape(Bb, nc, Q, H, P)).sum(-1)
+    dv = cb * G * ddecay(v) * tri.tril(-1)
+    dL = (dv.sum(-1) - dv.sum(-2)).transpose(2, 3)
+    CH = torch.einsum("bcin,bchnp->bcihp", Cc, h_prev)
+    dL = dL + ddecay(L) * (dyc * CH).sum(-1)
+    ds = (ddecay(lq - L) * (xdt * BD).sum(-1))[:, :, :-1]
+    dL = torch.cat([dL[:, :, :-1] - ds,
+                    dL[:, :, -1:] + ds.sum(2, keepdim=True)], dim=2)
+    dL[:, :, -1] += ddecay(lq[:, :, 0]) * (dh * h_prev).sum((-1, -2))
+    dcb = (_decay(v) * G * tri).sum(2)
+    dC = (torch.einsum("bcij,bcjn->bcin", dcb, Bc)
+          + torch.einsum("bcihp,bchnp->bcin", _decay(L)[..., None] * dyc,
+                         h_prev))
+    dB = (torch.einsum("bcij,bcin->bcjn", dcb, Cc)
+          + torch.einsum("bcjhp,bchnp->bcjn",
+                         _decay(lq - L)[..., None] * xdt, dh))
+    return (dx.reshape(Bb, S, H, P), ddt_x.reshape(Bb, S, H), dL,
+            dB.reshape(Bb, S, N), dC.reshape(Bb, S, N))
+
+
+@pytest.mark.parametrize("group", [1, HEAD_GROUP, "H"])
+def test_head_groups_match_the_per_chunk_head_walk(group):
+    """The head stage's group split (per group of heads: E∘G, U_C, U_B
+    added in order; the groups added in order by the finish) gives the
+    gradients of the per-(row, chunk) head walk, within 1e-6 of each
+    gradient's largest magnitude, whatever the group size — a ragged last
+    group included (H = 6)."""
+    Bb, S, H, P, N, chunk = 2, 48, 6, 5, 7, 16
+    group = H if group == "H" else group
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((Bb, S, H, P), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((Bb, S, H), generator=g))
+    A = -torch.rand((Bb, H), generator=g) * 4 - 0.1
+    B = torch.randn((Bb, S, N), generator=g)
+    C = torch.randn((Bb, S, N), generator=g)
+    dy = torch.randn((Bb, S, H, P), generator=g)
+    dhf = torch.randn((Bb, H, N, P), generator=g)
+    _, _, L, h_prev = ssd_scan_plain_saved(x, dt, A, B, C, chunk)
+    dh = ssd_state_walk_bwd(dy, C, L, dhf)
+    dx, ddt_x, dL, parts = ssd_head_group_bwd(x, dt, B, C, L, h_prev, dh,
+                                              dy, group)
+    assert parts[0].shape[2] == -(-H // group)
+    ddt, dA = ssd_dt_a_bwd(dt, A, ddt_x, dL)
+    ours = (dx, ddt, dA, *ssd_bc_finish_bwd(B, C, parts))
+    wx, wddt_x, wdL, wdB, wdC = head_walk_bwd(x, dt, B, C, L, h_prev, dh,
+                                              dy)
+    want = (wx, *ssd_dt_a_bwd(dt, A, wddt_x, wdL), wdB, wdC)
+    for name, a, b in zip(NAMES, ours, want):
+        err = float((a - b).abs().max())
+        assert err <= 1e-6 * float(b.abs().max()), (name, err)
