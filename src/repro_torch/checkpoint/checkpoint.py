@@ -51,46 +51,49 @@ def canonical_leaves(tree):
     the structure (:func:`_unflatten`); ``str`` of it is the file's
     treedef string.  None subtrees hold no leaf, as in JAX."""
     leaves = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return ("none",)
-        if isinstance(node, dict):
-            return ("dict", tuple((k, walk(node[k])) for k in sorted(node)))
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, tuple(walk(x) for x in node))
-        if isinstance(node, GossipState):
-            return ("GossipState", (walk(node.buf), walk(node.buf_idx),
-                                    walk(node.step)))
-        if isinstance(node, PackedGossipState):
-            raise TypeError("a packed train state saves through "
-                            "save_checkpoint_packed (the canonical layout)")
-        if isinstance(node, bool) or not isinstance(node, (int,
-                                                           torch.Tensor)):
-            raise TypeError(f"checkpoint: cannot store a "
-                            f"{type(node).__name__} leaf")
-        leaves.append(node)
-        return ("int",) if isinstance(node, int) else ("*",)
 
-    return leaves, walk(tree)
+# module functions taking their accumulator, as core/tree.py's: a nested
+# function that calls itself is a reference cycle that keeps the leaves
+# alive until the cyclic garbage collector runs
+
+def _walk(node, leaves):
+    if node is None:
+        return ("none",)
+    if isinstance(node, dict):
+        return ("dict", tuple((k, _walk(node[k], leaves))
+                              for k in sorted(node)))
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, tuple(_walk(x, leaves) for x in node))
+    if isinstance(node, GossipState):
+        return ("GossipState", tuple(_walk(x, leaves) for x in (
+            node.buf, node.buf_idx, node.step)))
+    if isinstance(node, PackedGossipState):
+        raise TypeError("a packed train state saves through "
+                        "save_checkpoint_packed (the canonical layout)")
+    if isinstance(node, bool) or not isinstance(node, (int, torch.Tensor)):
+        raise TypeError(f"checkpoint: cannot store a "
+                        f"{type(node).__name__} leaf")
+    leaves.append(node)
+    return ("int",) if isinstance(node, int) else ("*",)
+
+
+def _build(d, it):
+    kind = d[0]
+    if kind == "none":
+        return None
+    if kind in ("*", "int"):
+        return next(it)
+    if kind == "dict":
+        return {k: _build(sub, it) for k, sub in d[1]}
+    if kind == "GossipState":
+        return GossipState(*(_build(sub, it) for sub in d[1]))
+    return (list if kind == "list" else tuple)(_build(x, it) for x in d[1])
 
 
 def _unflatten(treedef, leaves):
-    it = iter(leaves)
-
-    def build(d):
-        kind = d[0]
-        if kind == "none":
-            return None
-        if kind in ("*", "int"):
-            return next(it)
-        if kind == "dict":
-            return {k: build(sub) for k, sub in d[1]}
-        if kind == "GossipState":
-            return GossipState(*(build(sub) for sub in d[1]))
-        return (list if kind == "list" else tuple)(build(x) for x in d[1])
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def _strip_live(tree):

@@ -12,19 +12,25 @@ import torch
 # a leaf's place in a treedef; a dict node is ("dict", ((key, sub), ...))
 LEAF = None
 
+# The recursions below are module functions that take their accumulator:
+# a nested function that calls itself is a reference cycle through its
+# closure, which keeps every leaf it saw (device memory included) alive
+# until the cyclic garbage collector happens to run.
+
+
+def _walk(node, leaves):
+    if isinstance(node, dict):
+        return ("dict", tuple((k, _walk(node[k], leaves))
+                              for k in sorted(node)))
+    leaves.append(node)
+    return LEAF
+
 
 def flatten_sorted(tree):
     """(leaves, treedef): leaves in sorted-key order; treedef is hashable
     and records empty dicts, so :func:`unflatten` restores the structure."""
     leaves = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            return ("dict", tuple((k, walk(node[k])) for k in sorted(node)))
-        leaves.append(node)
-        return LEAF
-
-    treedef = walk(tree)
+    treedef = _walk(tree, leaves)
     return leaves, treedef
 
 
@@ -32,15 +38,15 @@ def tree_leaves(tree) -> list:
     return flatten_sorted(tree)[0]
 
 
+def _build(d, it):
+    if d is LEAF:
+        return next(it)
+    return {k: _build(sub, it) for k, sub in d[1]}
+
+
 def unflatten(treedef, leaves):
     it = iter(leaves)
-
-    def build(d):
-        if d is LEAF:
-            return next(it)
-        return {k: build(sub) for k, sub in d[1]}
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("unflatten: more leaves than the treedef holds")
     return out

@@ -4,13 +4,16 @@ architecture families, through the public serving CLI.
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_decode \
           [--device cpu]
 
-The port serves the dense and SSM families (smollm-135m, mamba2-370m,
-reduced); the other archs of the reference's list are not ported yet, and
-the example ends by raising NotImplementedError that names them.
+The port serves the dense, MoE and SSM families (smollm-135m,
+granite-moe-1b-a400m, mamba2-370m, reduced); the other archs of the
+reference's list are not ported yet, and the example ends by raising
+NotImplementedError that names each with its ROADMAP.md item.
 """
 import argparse
 
+from repro_torch.configs.registry import get_arch
 from repro_torch.launch.serve import main as serve_main
+from repro_torch.models.blocks import FAMILY_ITEMS
 
 ARCHS = [
     "smollm-135m",          # dense
@@ -20,7 +23,7 @@ ARCHS = [
     "whisper-tiny",         # enc-dec audio (stub frontend)
     "paligemma-3b",         # VLM (stub SigLIP prefix)
 ]
-PORTED = ("smollm-135m", "mamba2-370m")
+PORTED = ("smollm-135m", "granite-moe-1b-a400m", "mamba2-370m")
 
 
 def main(argv=None):
@@ -31,10 +34,11 @@ def main(argv=None):
         serve_main(["--arch", arch, "--reduced", "--batch", "2",
                     "--prompt-len", "16", "--new-tokens", "8",
                     "--device", args.device])
-    missing = [a for a in ARCHS if a not in PORTED]
+    missing = [f"{a} (item {FAMILY_ITEMS[get_arch(a).arch_type]})"
+               for a in ARCHS if a not in PORTED]
     raise NotImplementedError(
         f"serving {', '.join(missing)} is not ported yet — ROADMAP.md "
-        "queue A, item 9 (remaining architectures)")
+        "queue A")
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ serves full mamba2-370m on the GPU (every 'S' layer of the prefill through
 the SSD-scan kernel B5; decode is plain torch, as in the reference).  Add
 ``--device cpu`` (and ``--reduced`` for the smoke-scale arch) to run on the
 CPU through the kernels' plain versions.  The port serves the archs whose
-layers it carries ('G' dense, 'S' mamba-2); the others raise with their
+layers it carries ('G' with the dense or the MoE FFN — ``--arch
+granite-moe-1b-a400m`` — and 'S' mamba-2); the others raise with their
 ROADMAP.md item.
 """
 from __future__ import annotations

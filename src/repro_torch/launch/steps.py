@@ -79,6 +79,8 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     (models.blocks.check_supported); 'S' layers train through the SSD
     scan's backward (kernel B5b on the card), so a batch's seq must be a
     multiple of cfg.ssm_chunk (models.ssm.apply_ssd raises otherwise).
+    The reported loss includes the MoE router's aux term (models.model
+    .loss_fn_w), which every engine differentiates with the rest.
     """
     from ..optim import adam_update, momentum_update
 

@@ -14,7 +14,10 @@ the gossip round on the pytree and packed engines.  Add ``--device cpu``
 kernels' plain versions.  Archs with 'S' (mamba-2 SSD) layers train on
 every engine: the SSD scan runs B5 forward and B5b backward on the card
 (``--arch mamba2-370m --seq 512``); --seq must be a multiple of the
-arch's ssm_chunk, as the reference's chunked scan asserts.
+arch's ssm_chunk, as the reference's chunked scan asserts.  The MoE archs
+(``--arch granite-moe-1b-a400m``, phi3.5-moe-42b-a6.6b) train on every
+engine too: the router's load-balance term is part of every reported loss,
+as in the reference; the expert products are batched cuBLAS matmuls.
 
 --save writes the train state after the last step and --restore resumes
 from such a file at its step, running on to --steps (files of the JAX
@@ -199,6 +202,9 @@ def main(argv=None):
                  "gossip": init_state(packed, gcfg, block_rows=wire_br,
                                       elastic=args.elastic),
                  "opt": init_inner_state(packed, args.inner), "step": 0}
+        # the state holds the ensemble and each step replaces it: a local
+        # name would keep the first one alive on the card all run long
+        del packed
     else:
         wparams = tree_map(torch.Tensor.contiguous, wparams)
         state = {"params": wparams,

@@ -1,15 +1,16 @@
 """Per-layer blocks: init, full-sequence apply (train / prefill, optionally
 returning the decode cache) and single-token decode against a cache.
 
-This port carries the 'G' (global attention) layer with the GLU MLP — every
-layer of the dense archs — and the 'S' (mamba-2 SSD) layer, for serving and
+This port carries the 'G' (global attention) layer with the GLU MLP or,
+when the config has experts, the MoE FFN (models/moe.py) — every layer of
+the dense and MoE archs — and the 'S' (mamba-2 SSD) layer, for serving and
 for training (the SSD scan differentiates through kernel B5b on the card).
 A 'G' layer at seq >= FLASH_MIN_SEQ with seq % 512 == 0 takes the chunked
 ``attention_flash``, as the reference's ``_attend_full`` does; shorter
-ones the dense form.  The reference's other layer types ('L', 'R', 'E'),
-MoE and cross-attention raise NotImplementedError (ROADMAP.md queue A,
-item 9).  Sharding hints, sequence parallelism and remat change no values
-on one device and are left out.
+ones the dense form.  The reference's other layer types ('L', 'R', 'E')
+and cross-attention raise NotImplementedError naming the arch family's
+ROADMAP.md queue A item (``FAMILY_ITEMS``).  Sharding hints, sequence
+parallelism and remat change no values on one device and are left out.
 """
 from __future__ import annotations
 
@@ -20,10 +21,25 @@ from .common import (AttnSpec, _project_qkv, attention_decode,
                      attention_dense, attention_flash, causal_mask,
                      init_attention, init_kv_cache, make_norm)
 from .mlp import apply_mlp, init_mlp
+from .moe import apply_moe, apply_moe_decode, init_moe
 from .ssm import apply_ssd, apply_ssd_decode, init_ssd, init_ssd_cache
 
 # the reference switches to its chunked attention_flash at this length
 FLASH_MIN_SEQ = 2048
+
+# the ROADMAP.md queue A item that ports each arch family's missing
+# features: gemma3-1b 9c, recurrentgemma-9b 9d, paligemma-3b 9e,
+# whisper-tiny 9f (the dense, MoE and SSM families lack none)
+FAMILY_ITEMS = {"dense": "9c", "hybrid": "9d", "vlm": "9e", "audio": "9f"}
+
+
+def not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
+    """The error for a feature of ``cfg`` the port does not carry, naming
+    the family's ROADMAP.md queue A item where it has one."""
+    item = FAMILY_ITEMS.get(cfg.arch_type)
+    return NotImplementedError(
+        f"{cfg.name}: {what} not ported yet — ROADMAP.md queue A"
+        + (f", item {item}" if item else ""))
 
 
 def attn_spec(cfg: ModelConfig) -> AttnSpec:
@@ -41,13 +57,12 @@ def attn_spec(cfg: ModelConfig) -> AttnSpec:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for any model feature the port does not carry, for serving
-    and training alike: 'G' and 'S' layers are ported."""
+    and training alike: 'G' (with the GLU MLP or MoE) and 'S' layers
+    are ported.  The message names the arch family's ROADMAP.md item."""
     missing = []
     layer_types = set(cfg.pattern_cycle)
     if not layer_types <= {"G", "S"}:
         missing.append(f"layer types {sorted(layer_types)} (only 'G', 'S')")
-    if cfg.n_experts:
-        missing.append("MoE")
     if cfg.d_ff and not cfg.glu_mlp:
         missing.append("non-GLU MLP")
     if cfg.cross_attention or cfg.encoder_layers or cfg.frontend:
@@ -59,16 +74,12 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attn_softcap or cfg.logit_softcap or cfg.scale_embeddings:
         missing.append("softcaps / scaled embeddings (gemma family)")
     if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet — "
-            "ROADMAP.md queue A, item 9 (remaining architectures)")
+        raise not_ported(cfg, ", ".join(missing))
 
 
-def _layer_type(ltype: str) -> None:
+def _layer_type(cfg: ModelConfig, ltype: str) -> None:
     if ltype not in ("G", "S"):
-        raise NotImplementedError(
-            f"layer type {ltype!r} not ported yet — ROADMAP.md queue A, "
-            "item 9")
+        raise not_ported(cfg, f"layer type {ltype!r}")
 
 
 def _ssm_dims(cfg: ModelConfig) -> dict:
@@ -78,7 +89,7 @@ def _ssm_dims(cfg: ModelConfig) -> dict:
 
 def init_layer(generator, cfg: ModelConfig, ltype: str, *,
                dtype=torch.float32, device=None):
-    _layer_type(ltype)
+    _layer_type(cfg, ltype)
     norm_init, _ = make_norm(cfg.norm_type)
     p = {"ln1": norm_init(cfg.d_model, dtype, device)}
     if ltype == "G":
@@ -88,14 +99,19 @@ def init_layer(generator, cfg: ModelConfig, ltype: str, *,
                             dtype=dtype, device=device, **_ssm_dims(cfg))
     if cfg.d_ff > 0 and ltype != "S":
         p["ln2"] = norm_init(cfg.d_model, dtype, device)
-        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device)
+        if cfg.n_experts > 0:
+            p["moe"] = init_moe(generator, cfg.d_model, cfg.d_ff,
+                                cfg.n_experts, dtype, device)
+        else:
+            p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
+                                device)
     return p
 
 
 def init_layer_cache(cfg: ModelConfig, ltype: str, batch, max_seq,
                      dtype=torch.bfloat16, device=None):
     """One model's zero decode cache of one layer (the reference's)."""
-    _layer_type(ltype)
+    _layer_type(cfg, ltype)
     if ltype == "G":
         return init_kv_cache(batch, max_seq, cfg.n_kv_heads,
                              cfg.resolved_head_dim, dtype, device)
@@ -106,13 +122,16 @@ def init_layer_cache(cfg: ModelConfig, ltype: str, batch, max_seq,
 def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
                 return_cache=False, cache_len=None):
     """Full-sequence layer (pre-norm residual) on W worker replicas:
-    x + mixer(norm1(x)), then + mlp(norm2(x)) where the layer has one.
-    x: (W, B, S, D); p: leaves with a leading worker axis; positions: (S,).
-    Returns (x, cache) — cache None unless ``return_cache``: for 'G' the
-    bf16 KV cache of ``cache_len`` positions (W, B, L, KV, Dh) holding this
-    prompt's k/v; for 'S' a ZERO conv cache and the final SSD state, as the
-    reference returns them (its post-conv tail is computed and dropped)."""
-    _layer_type(ltype)
+    x + mixer(norm1(x)), then + ffn(norm2(x)) where the layer has one (the
+    GLU MLP, or the MoE FFN).  x: (W, B, S, D); p: leaves with a leading
+    worker axis; positions: (S,).  Returns (x, aux, cache), as the
+    reference does: aux (W,) the MoE router's load-balance loss (None
+    without MoE, where the reference's is 0); cache None unless
+    ``return_cache``: for 'G' the bf16 KV cache of ``cache_len`` positions
+    (W, B, L, KV, Dh) holding this prompt's k/v; for 'S' a ZERO conv cache
+    and the final SSD state, as the reference returns them (its post-conv
+    tail is computed and dropped)."""
+    _layer_type(cfg, ltype)
     _, norm = make_norm(cfg.norm_type)
     h = norm(p["ln1"], x)
     cache = None
@@ -143,16 +162,28 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
                                          device=x.device),
                      "ssm": h_fin}
     x = x + out
+    x, aux = _ffn(cfg, p, x, norm)
+    return x, aux, cache
+
+
+def _ffn(cfg: ModelConfig, p, x, norm):
+    """The layer's FFN residual and its aux loss (W,), None without MoE."""
+    if "moe" in p:
+        h, aux = apply_moe(p["moe"], norm(p["ln2"], x),
+                           cfg.experts_per_token, act=cfg.act,
+                           capacity_factor=cfg.capacity_factor,
+                           dispatch_groups=cfg.moe_dispatch_groups)
+        return x + h, aux
     if "mlp" in p:
         x = x + apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act)
-    return x, cache
+    return x, None
 
 
 def apply_layer_decode(cfg: ModelConfig, ltype: str, p, x, pos: int, cache):
     """One token on W replicas against this layer's cache, which it updates
     IN PLACE (the reference returns a new cache).  x: (W, B, 1, D); pos:
     host int.  Returns x."""
-    _layer_type(ltype)
+    _layer_type(cfg, ltype)
     _, norm = make_norm(cfg.norm_type)
     h = norm(p["ln1"], x)
     if ltype == "G":
@@ -162,6 +193,10 @@ def apply_layer_decode(cfg: ModelConfig, ltype: str, p, x, pos: int, cache):
         cache["conv"].copy_(new["conv"])
         cache["ssm"].copy_(new["ssm"])
         x = x + out
-    if "mlp" in p:
+    if "moe" in p:
+        out, _ = apply_moe_decode(p["moe"], norm(p["ln2"], x),
+                                  cfg.experts_per_token, act=cfg.act)
+        x = x + out
+    elif "mlp" in p:
         x = x + apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act)
     return x

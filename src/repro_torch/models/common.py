@@ -65,12 +65,10 @@ def rmsnorm(params, x, eps=1e-6):
 
 def make_norm(norm_type):
     """(init, apply) of the config's norm.  Only RMSNorm is ported: the
-    reference's LayerNorm serves whisper-tiny alone (ROADMAP.md queue A,
-    item 9)."""
+    reference's LayerNorm serves whisper-tiny alone (ROADMAP.md queue A)."""
     if norm_type != "rmsnorm":
         raise NotImplementedError(
-            f"norm_type {norm_type!r} not ported yet — ROADMAP.md queue A, "
-            "item 9")
+            f"norm_type {norm_type!r} not ported yet — ROADMAP.md queue A")
     return init_rmsnorm, rmsnorm
 
 

@@ -84,14 +84,17 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
 def forward_w(cfg: ModelConfig, params, batch, *, return_cache=False,
               cache_len=None):
     """W worker replicas at once: params leaves (W, ...), batch["tokens"]
-    (W, B, S).  Returns logits (W, B, S, V) or, with ``return_cache``,
-    (logits, cache): the reference's cache tree with leaves (W, n_full, B,
+    (W, B, S).  Returns (logits (W, B, S, V), aux (W,)) or, with
+    ``return_cache``, (logits, aux, cache), as the reference's forward:
+    aux the MoE router's load-balance loss summed over the layers (zeros
+    without MoE); cache the reference's tree with leaves (W, n_full, B,
     ...) under "scan" and (W, B, ...) under "tail"."""
     check_supported(cfg)
     cycle, n_full, tail = cycle_structure(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[-1], device=x.device)
+    aux = torch.zeros((tokens.shape[0],), device=x.device)
     # the stacked layer axis sits behind the worker axis
     stacks = {j: _tree_unstack(params["scan"][f"pos{j}"], n_full, dim=1)
               for j in range(len(cycle))}
@@ -99,21 +102,26 @@ def forward_w(cfg: ModelConfig, params, batch, *, return_cache=False,
     scan_caches = {j: [] for j in range(len(cycle))}
     for i in range(n_full):
         for j, ltype in enumerate(cycle):
-            x, c = apply_layer(cfg, ltype, stacks[j][i], x, positions, **kw)
+            x, a, c = apply_layer(cfg, ltype, stacks[j][i], x, positions,
+                                  **kw)
+            if a is not None:
+                aux = aux + a
             scan_caches[j].append(c)
     tail_caches = {}
     for j, ltype in enumerate(tail):
-        x, tail_caches[f"t{j}"] = apply_layer(
+        x, a, tail_caches[f"t{j}"] = apply_layer(
             cfg, ltype, params["tail"][f"t{j}"], x, positions, **kw)
+        if a is not None:
+            aux = aux + a
     _, norm = make_norm(cfg.norm_type)
     x = norm(params["final_norm"], x)
     logits = unembed(cfg, params, x)
     if not return_cache:
-        return logits
+        return logits, aux
     cache = {"scan": {f"pos{j}": _tree_stack(cs, dim=1)
                       for j, cs in scan_caches.items()},
              "tail": tail_caches}
-    return logits, cache
+    return logits, aux, cache
 
 
 def unembed(cfg: ModelConfig, params, x):
@@ -130,13 +138,15 @@ def unembed(cfg: ModelConfig, params, x):
 
 
 def loss_fn_w(cfg: ModelConfig, params, batch):
-    """Per-worker next-token cross-entropy (W,), mean over positions."""
-    logits = forward_w(cfg, params, batch)
+    """Per-worker loss (W,): next-token cross-entropy, mean over
+    positions, plus ``cfg.router_aux_weight`` times the MoE aux loss, as
+    the reference's loss_fn."""
+    logits, aux = forward_w(cfg, params, batch)
     tokens = batch["tokens"]
     lp = F.log_softmax(logits[:, :, :-1].float(), dim=-1)
     tgt = tokens[:, :, 1:].long()
     nll = -lp.gather(-1, tgt[..., None])[..., 0]
-    return nll.mean(dim=(1, 2))
+    return nll.mean(dim=(1, 2)) + cfg.router_aux_weight * aux
 
 
 def _one_worker(params, batch):
@@ -147,11 +157,12 @@ def _one_worker(params, batch):
 def forward(cfg: ModelConfig, params, batch):
     """One model in the reference's layout: params without a worker axis,
     batch["tokens"] (B, S).  Returns logits (B, S, V)."""
-    return forward_w(cfg, *_one_worker(params, batch))[0]
+    return forward_w(cfg, *_one_worker(params, batch))[0][0]
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """Next-token cross-entropy of one model (the reference's loss_fn)."""
+    """Next-token cross-entropy plus the MoE aux term of one model (the
+    reference's loss_fn)."""
     return loss_fn_w(cfg, *_one_worker(params, batch))[0]
 
 
@@ -182,8 +193,8 @@ def prefill(cfg: ModelConfig, params, batch, cache_len=None):
     model; batch["tokens"]: (B, S).  Returns (last_logits (B, V), cache) —
     the cache in the reference's tree and layout (see :func:`init_cache`);
     its 'S' conv caches are zero, as the reference's are."""
-    logits, cache = forward_w(cfg, *_one_worker(params, batch),
-                              return_cache=True, cache_len=cache_len)
+    logits, _, cache = forward_w(cfg, *_one_worker(params, batch),
+                                 return_cache=True, cache_len=cache_len)
     return logits[0, :, -1], tree_map(lambda x: x[0], cache)
 
 

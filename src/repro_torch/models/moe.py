@@ -1,0 +1,183 @@
+"""Mixture-of-Experts FFN with top-k routing and capacity-based dispatch.
+
+Covers phi3.5-moe (16 experts, top-2) and granite-moe (32 experts, top-8),
+as the reference's ``models/moe.py`` does: tokens are placed into an
+(E, C, D) capacity buffer, every expert computes only its capacity slice,
+and the results come back weighted by the router's probabilities.  The
+router's Switch-style load-balance loss comes out beside the output.
+
+Worker batching as in common.py: params carry a leading worker axis (W,
+...) and activations are (W, B, S, D); one model is W = 1.  Dispatch
+groups never cross workers: T = B*S is counted per worker, and each
+worker's tokens split into ``dispatch_groups`` independent groups (the
+reference vmaps over them), each with its own capacity.
+
+Determinism: the dispatch and the gather-back are row gathers through
+one-to-one slot tables, never scatters that add.  A (token, slot) pair
+that overflows its expert reads, and a capacity slot that no pair fills
+holds, one zero sentinel row — the exact zeros the reference writes.  So
+every kept row moves once each way, the backward of each gather adds at
+most one value into any row that is read afterwards (the sentinel's
+gradient is dropped), and a token's k expert outputs add up in slot order
+as a (Tg, k, D) sum, where the reference adds them with
+``.at[tok].add``.  No float atomics decide a value on the card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .common import activation, dense_init
+
+
+def init_moe(generator, d_model, d_ff, n_experts, dtype=torch.float32,
+             device=None):
+    """One model's MoE params (no worker axis), the reference's layout;
+    the router is always f32."""
+    kw = {"generator": generator, "device": device}
+    return {
+        "router": dense_init(shape=(d_model, n_experts), in_axis=0,
+                             dtype=torch.float32, **kw),
+        "gate": dense_init(shape=(n_experts, d_model, d_ff), in_axis=1,
+                           dtype=dtype, **kw),
+        "up": dense_init(shape=(n_experts, d_model, d_ff), in_axis=1,
+                         dtype=dtype, **kw),
+        "down": dense_init(shape=(n_experts, d_ff, d_model), in_axis=1,
+                           dtype=dtype, **kw),
+    }
+
+
+def route(params, x, topk):
+    """x: (W, ..., T, D) -> (weights (W, ..., T, k), idx (W, ..., T, k),
+    aux_loss (W, ...), load (W, ..., E)), one router per worker.
+
+    Top-k in descending order (a token's slots in that order), the k
+    weights renormalized to sum to one, and the aux loss E * <f, p>: f the
+    mean over tokens of each expert's top-k count (no gradient), p the
+    mean router probability."""
+    router = params["router"]                           # (W, D, E)
+    logits = (x.float().reshape(router.shape[0], -1, router.shape[1])
+              @ router).reshape(x.shape[:-1] + router.shape[-1:])
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, topk, dim=-1, sorted=True)
+    w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    E = logits.shape[-1]
+    # means as the reference's compile: a multiply by the f32 reciprocal
+    inv_t = 1.0 / x.shape[-2]
+    f = F.one_hot(idx, E).sum(dim=(-3, -2)).float() * inv_t
+    p = probs.sum(dim=-2) * inv_t
+    aux = E * (f * p).sum(dim=-1)
+    return w.to(x.dtype), idx, aux, f
+
+
+def _blocked_cumsum(x, blk=4096):
+    """Exact two-level inclusive cumsum of integer counts along axis -2,
+    the reference's form: within blocks of ``blk`` rows, then the blocks'
+    totals as offsets.  x: (..., n, e)."""
+    n, e = x.shape[-2:]
+    if n <= blk:
+        return torch.cumsum(x, dim=-2)
+    lead = tuple(x.shape[:-2])
+    nb = -(-n // blk)
+    xb = F.pad(x, (0, 0, 0, nb * blk - n)).reshape(lead + (nb, blk, e))
+    within = torch.cumsum(xb, dim=-2)                  # (..., nb, blk, E)
+    totals = within[..., -1, :]                        # (..., nb, E)
+    offsets = torch.cumsum(totals, dim=-2) - totals    # exclusive
+    out = (within + offsets[..., None, :]).reshape(lead + (nb * blk, e))
+    return out[..., :n, :]
+
+
+def _gather_rows(src, index):
+    """src (W, G, n, D), index (W, G, m) -> (W, G, m, D)."""
+    return torch.gather(src, 2, index[..., None].expand(
+        index.shape + (src.shape[-1],)))
+
+
+def _with_zero_row(x):
+    """(W, G, n, D) -> (W, G, n + 1, D): the sentinel zero row at n."""
+    return torch.cat([x, x.new_zeros(x.shape[:2] + (1, x.shape[-1]))], dim=2)
+
+
+def capacity_slots(idx, E, C):
+    """idx (..., Tg, k) -> (slot (..., Tg*k), keep (..., Tg*k)): each
+    (token, slot) pair's place e*C + pos in the (E, C) buffer, E*C (the
+    sentinel) where it is dropped.  Pairs go token-major, slot-minor; a
+    pair's position is the running count of its expert over the pairs
+    before it, the reference's; pairs at position >= C are dropped."""
+    flat_e = idx.reshape(idx.shape[:-2] + (-1,))
+    onehot = F.one_hot(flat_e, E)                       # (..., N, E)
+    pos_in_e = _blocked_cumsum(onehot) - 1              # running count
+    pos = torch.gather(pos_in_e, -1, flat_e[..., None])[..., 0]
+    keep = pos < C                                      # overflow dropped
+    return torch.where(keep, flat_e * C + pos, E * C), keep
+
+
+def _dispatch_group(params, xt, topk, act, C):
+    """Capacity dispatch of every worker's token groups at once, capacity
+    C an expert per group.  xt: (W, G, Tg, D) -> (y (W, G, Tg, D), aux
+    (W, G))."""
+    Wn, G, Tg, D = xt.shape
+    E = params["router"].shape[-1]
+    N = Tg * topk
+    w, idx, aux, _ = route(params, xt, topk)            # (W, G, Tg, k)
+    slot, _ = capacity_slots(idx, E, C)                 # (W, G, N)
+    # the pair that fills each slot (N: the sentinel); kept slots unique
+    filler = torch.full((Wn, G, E * C + 1), N, dtype=slot.dtype,
+                        device=xt.device)
+    filler.scatter_(-1, slot, torch.arange(N, device=xt.device)
+                    .expand(Wn, G, N))
+    filler = filler[..., :E * C]
+
+    # dispatch: every pair's token row, then each slot's filler
+    xk = xt[:, :, :, None].expand(Wn, G, Tg, topk, D).reshape(Wn, G, N, D)
+    buf = _gather_rows(_with_zero_row(xk), filler)      # (W, G, E*C, D)
+    buf = (buf.reshape(Wn, G, E, C, D).transpose(1, 2)
+           .reshape(Wn, E, G * C, D))
+
+    # expert FFN on the capacity slices: (W, E, G*C, D) x (W, E, D, F).
+    # At W > 1 a stacked layer's (W, E) weight views do not fold into one
+    # batch stride, so each product copies its weight; one matmul a
+    # worker instead took longer at the training step's shapes (its
+    # launches cost more than the copies)
+    f = activation(act)
+    h = f(buf @ params["gate"]) * (buf @ params["up"])
+    out = h @ params["down"]                            # (W, E, G*C, D)
+    out = (out.reshape(Wn, E, G, C, D).transpose(1, 2)
+           .reshape(Wn, G, E * C, D))
+
+    # gather back, weighted, the k slots of a token summed in slot order
+    gathered = _gather_rows(_with_zero_row(out), slot)  # (W, G, N, D)
+    y = (gathered.reshape(Wn, G, Tg, topk, D)
+         * w[..., None].to(gathered.dtype)).sum(dim=-2)
+    return y, aux
+
+
+def apply_moe(params, x, topk, act="silu", capacity_factor=1.25,
+              dispatch_groups=1):
+    """x: (W, B, S, D) -> (y (W, B, S, D), aux_loss (W,)).
+
+    Each worker's T = B*S tokens split into ``dispatch_groups`` groups
+    when that divides T (else one), each with capacity
+    C = max(1, int(capacity_factor * Tg * k / E)); aux is the mean over a
+    worker's groups."""
+    Wn, B, S, D = x.shape
+    T = B * S
+    E = params["router"].shape[-1]
+    g = dispatch_groups if T % dispatch_groups == 0 else 1
+    Tg = T // g
+    C = max(1, int(capacity_factor * Tg * topk / E))
+    y, aux = _dispatch_group(params, x.reshape(Wn, g, Tg, D), topk, act, C)
+    return y.reshape(Wn, B, S, D), aux.sum(dim=-1) * (1.0 / g)
+
+
+def apply_moe_decode(params, x, topk, act="silu"):
+    """Decode path: x (W, B, 1, D), one group of B tokens per worker, with
+    the reference's capacity C = max(1, ceil(B*k/E) * 2).  That capacity
+    can still drop (token, slot) pairs (the reference's comment says it
+    drops nothing; at granite's B 4, k 8, E 32 it does), and the port
+    drops the same ones.  Returns (y (W, B, 1, D), zeros (W,))."""
+    Wn, B, _, D = x.shape
+    E = params["router"].shape[-1]
+    C = max(1, -(-B * topk // E) * 2)
+    y, _ = _dispatch_group(params, x.reshape(Wn, 1, B, D), topk, act, C)
+    return y.reshape(Wn, B, 1, D), x.new_zeros((Wn,), dtype=torch.float32)

@@ -94,8 +94,9 @@ def test_g_layer_at_2048_dispatches_to_flash(monkeypatch):
     real = TB.attention_flash
     monkeypatch.setattr(TB, "attention_flash",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    ours, _ = TB.apply_layer(get_arch("smollm-135m").reduced(), "G", tp,
-                             torch.from_numpy(x)[None], torch.arange(S))
+    ours, _, _ = TB.apply_layer(get_arch("smollm-135m").reduced(), "G",
+                                tp, torch.from_numpy(x)[None],
+                                torch.arange(S))
     assert calls == [1]
     np.testing.assert_allclose(ours[0].numpy(), np.asarray(ref), rtol=2e-4,
                                atol=2e-5)

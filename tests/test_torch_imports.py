@@ -72,3 +72,10 @@ def test_checkpoint_slice_modules_are_checked(module):
     the GPU machine has none (checkpoint/codec.py writes the format)."""
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
     assert not any("msgpack" in imported_roots(p) for p in PORT_FILES)
+
+
+@pytest.mark.parametrize("module", ["models/moe.py", "models/blocks.py",
+                                    "models/model.py"])
+def test_moe_slice_modules_are_checked(module):
+    """The MoE slice's modules are among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
