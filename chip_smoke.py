@@ -121,6 +121,40 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      prompt 2048, 32 new tokens; every 'G' layer of the prefill through
      attention_flash, counted), then granite-moe and phi3.5-moe at full
      width with its depth cut to 4 layers: steady prefill and decode
+     times, peak memory while serving, a profile of one prefill;
+ 23. [gemma-train-check] reduced gemma3-1b (6 layers: 'L' x5, 'G'; window
+     16) and reduced recurrentgemma-9b (3 layers: 'R', 'R', 'L'; lru_width
+     256) at seq 32, where the window binds: 3 pipelined int8 steps from
+     distinct worker starts, GPU (B1r/B1a) against CPU: losses rel 1e-4,
+     ensembles atol 1e-4, n_good equal and not all 0;
+ 24. [gemma-train] ``repro_torch.launch.train`` on full gemma3-1b (26
+     layers: 22 'L' with window 512, 4 'G'; random weights from seed 0),
+     W=2 (at W=4 a step of seq 1024 runs out of the card's memory), batch
+     2, seq 1024, where the window binds, --pipelined --wire-format int8,
+     8 steps, counters zeroed before and read after — B1r/B1a once a step
+     — its steady step time and peak memory, the forward and backward of
+     one step by CUDA events, its profile, and B1r/B1a's device time in
+     one step;
+ 25. [rg-train] ``repro_torch.launch.train`` on recurrentgemma-9b at full
+     width with its depth cut to one (R, R, L) cycle (the trainer's
+     get_arch cut for the run), W=2, batch 2, seq 128, pipelined int8, 8
+     steps, counters zeroed before and read after — B1r/B1a once a step —
+     and the readings of [24]; then the trained 'L' layer's forward and
+     backward at seq 4096, where its window of 2048 binds (attention_flash
+     with the window, counted), by CUDA events;
+ 26. [gemma-blend] B1r/B1a as [moe-blend] on the ensembles the Gemma paths
+     blend: gemma3-1b at W=2 (2.0e9 f32 elements) and at W=4 (4.0e9, past
+     2^31), and the depth-cut recurrentgemma-9b at W=2 (3.4e9, past
+     2^31);
+ 27. [gemma-serve-check] reduced gemma3-1b and recurrentgemma-9b as
+     [moe-serve-check] (prompts of 32, 4 decode steps past the window of
+     16), the 'R' layers' prefilled conv cache zero; then reduced
+     gemma3-1b at a 2048-token prompt, GPU against CPU, every 'L' layer of
+     the GPU's prefill through attention_flash with its window (counted);
+ 28. [gemma-serve] ``launch.serve.main`` (batch 4, prompt 2048, 32 new
+     tokens) on full gemma3-1b — 26 attention_flash calls a prefill, 22
+     with window 512 and 4 without, counted — and full recurrentgemma-9b
+     (38 layers; 12 'L' with window 2048): steady prefill and decode
      times, peak memory while serving, a profile of one prefill.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and last the device JSON line.  Without a GPU, or without the repo's
@@ -500,12 +534,17 @@ def phase_small_check(torch, device):
         f"max |ensemble diff| {err:.3e}")
 
 
+def train_argv(arch, wn, seq, steps):
+    """The trainer's flags on a training path: full ``arch``, pipelined,
+    int8 wire, ``wn`` workers, batch 2, ``seq`` tokens."""
+    return ["--arch", arch, "--workers", str(wn), "--pipelined",
+            "--wire-format", "int8", "--batch", "2", "--seq", str(seq),
+            "--steps", str(steps), "--log-every", "1"]
+
+
 def main_argv(steps, workers=W):
-    """The trainer's flags on the main path: full smollm-135m, pipelined,
-    int8 wire, batch 2, seq 128."""
-    return ["--arch", "smollm-135m", "--workers", str(workers),
-            "--pipelined", "--wire-format", "int8", "--steps", str(steps),
-            "--batch", "2", "--seq", "128", "--log-every", "1"]
+    """The trainer's flags on the main path: full smollm-135m, seq 128."""
+    return train_argv("smollm-135m", workers, 128, steps)
 
 
 def steady_median(step_seconds):
@@ -1217,9 +1256,13 @@ B4_SHAPES = (("batch", None, KM_M, KM_K, KM_D),    # run_batch's E/M step
 
 def device_ms(torch, run, parts, reps):
     """Device milliseconds per call of ``run`` (after a warm-up call) summed
-    over the kernels whose names hold one of ``parts``, their device
-    launches per call, and the parts that ran, from a torch.profiler trace
-    of ``reps`` calls; None when the trace holds no such device events."""
+    over the kernels whose names hold one of ``parts``, from a
+    torch.profiler trace of ``reps`` calls.  A session can drop a device
+    event, so each part's time is its mean over the launches the trace
+    kept, times its launches a call (the kept ones over ``reps``,
+    rounded).  Returns (ms a call, launches a call, the parts that ran,
+    the events kept, of the launches a call x ``reps``), or None when the
+    trace holds no such device events."""
     run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1232,14 +1275,19 @@ def device_ms(torch, run, parts, reps):
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
+    ms, launches, ran, kept = 0.0, 0, [], 0
+    for part in parts:
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and any(part in e.name for part in parts)]
-    if not events:
+              and part in e.name]
+        if us:
+            per_call = max(1, round(len(us) / reps))
+            ms += sum(us) / len(us) * per_call / 1e3
+            launches, kept = launches + per_call, kept + len(us)
+            ran.append(part)
+    if not ran:
         return None
-    ran = tuple(part for part in parts if any(part in e.name for e in events))
-    return (sum(e.time_range.end - e.time_range.start for e in events)
-            / reps / 1e3, len(events) / reps, ran)
+    return ms, launches, tuple(ran), kept
 
 
 def b4_kernel_ran(dev):
@@ -1340,9 +1388,10 @@ def phase_kmeans_kernels(torch, device):
                   f"{b4_kernel_ran(dev)})")
         if case == "round":
             log(f"[kernels] B4 round: "
-                + (f"{dev[0]:.4f} ms of device time a call ({dev[1]:.2f} "
-                   f"device launches: {' and '.join(dev[2])}, "
-                   f"torch.profiler over {reps} calls)" if dev else
+                + (f"{dev[0]:.4f} ms of device time a call ({dev[1]} "
+                   f"device launches: {' and '.join(dev[2])}; "
+                   f"torch.profiler over {reps} calls kept {dev[3]} of "
+                   f"{dev[1] * reps} events)" if dev else
                    "device time not measured (no device events traced)")
                 + f" against {results[('B4', case)]['ms']:.4f} ms a call "
                 f"by CUDA events over back-to-back calls")
@@ -1977,11 +2026,11 @@ SSM_TRAIN_STEPS, SSM_TRAIN_SEQ = 8, 512
 @contextlib.contextmanager
 def count_calls(module, name):
     """Counts the calls of ``module.name`` inside the block (a list, one
-    entry a call) and restores it after."""
+    entry a call: the call's keyword arguments) and restores it after."""
     real, calls = getattr(module, name), []
 
     def counted(*a, **k):
-        calls.append(1)
+        calls.append(k)
         return real(*a, **k)
 
     setattr(module, name, counted)
@@ -2082,11 +2131,11 @@ def phase_ssd_bwd_kernel(torch, device):
     tc_ms = max(t_bytes, 3 * n_flops / TF32_FLOP_PER_S * 1e3)
     stages = []
     for name in SSD_BWD_NAMES:
-        # one launch a call: ms a launch over the launches the trace kept
-        # (a session may drop one of its events)
+        # one launch a call: device_ms averages over the launches the
+        # trace kept (a session may drop one of its events)
         dev = device_ms(torch, run, (name,), 5)
         stages.append(f"{name} " + ("not traced" if dev is None
-                                    else f"{dev[0] / dev[1]:.4f}"))
+                                    else f"{dev[0]:.4f}"))
     err = max(e for e, _ in errs.values())
     log(f"[kernels] B5b Bb={Bb} S={S} H={H} P={P} N={N} chunk={Q}: kernel "
         f"{ms:.4f} ms ({_bwd_library().ssd_bwd_launches()} device launches "
@@ -2133,6 +2182,35 @@ def phase_ssd_bwd_kernel(torch, device):
     return results
 
 
+def check_train_run(tag, losses, counts, steps, want):
+    """A training run's losses finite, one a step, and its launch counts
+    those of ``want``."""
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
+    if any(counts.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"{tag}: launches {counts}, want {want} in "
+                             f"{steps} steps")
+
+
+def run_trainer(torch, tag, argv, steps, want):
+    """``repro_torch.launch.train.main(argv)`` with the launch counters
+    zeroed just before and read just after and the peak memory reset,
+    held by :func:`check_train_run`.  Returns (its output, the counts, the
+    peak memory in GiB)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import train
+
+    log(f"[{tag}] python -m repro_torch.launch.train {' '.join(argv)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check_train_run(tag, out["losses"], counts, steps, want)
+    return out, counts, torch.cuda.max_memory_allocated() / 2**30
+
+
 def phase_ssm_train_check(torch, device):
     """Reduced mamba2-370m (seq 32: 4 chunks of 8), 3 pipelined int8
     steps, GPU (B5, B5b, B1) against CPU (plain versions)."""
@@ -2152,49 +2230,30 @@ def phase_ssm_train_check(torch, device):
         f"{counts}")
 
 
-def ssm_train_argv(steps):
-    """The trainer's flags on the SSM training path: full mamba2-370m,
-    pipelined, int8 wire, W 4, batch 2, seq 512 (4 chunks)."""
-    return ["--arch", "mamba2-370m", "--workers", str(W), "--pipelined",
-            "--wire-format", "int8", "--batch", "2", "--seq",
-            str(SSM_TRAIN_SEQ), "--steps", str(steps), "--log-every", "1"]
-
-
 def phase_ssm_train(torch, device):
     """``repro_torch.launch.train`` on full mamba2-370m, counters zeroed
     before and read after — B5 and B5b once per layer a step, B1r/B1a once
     a step — its steady step time and peak memory; then the forward and
     backward of one step by CUDA events and a profile of it.  Returns the
     run's launch counts of B5b."""
-    from repro_torch import kernels as K
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import gossip as G
     from repro_torch.core.packing import pack_spec_w, pack_w
     from repro_torch.core.tree import tree_map
     from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
     from repro_torch.kernels.ssd_scan.kernel import SCAN, SCAN_BWD
-    from repro_torch.launch import train
     from repro_torch.launch.steps import packed_loss_and_grad
     from repro_torch.models.model import init_model
 
     cfg = get_arch("mamba2-370m")
-    argv = ssm_train_argv(SSM_TRAIN_STEPS)
-    log(f"[ssm-train] python -m repro_torch.launch.train {' '.join(argv)}")
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    out = train.main(argv)
-    torch.cuda.synchronize()
-    counts = K.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    losses = out["losses"]
-    if len(losses) != SSM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"ssm-train: losses {losses}")
     want = {SCAN: cfg.n_layers * SSM_TRAIN_STEPS,
             SCAN_BWD: cfg.n_layers * SSM_TRAIN_STEPS,
             REDUCE: SSM_TRAIN_STEPS, APPLY: SSM_TRAIN_STEPS}
-    if any(counts.get(k) != v for k, v in want.items()):
-        raise AssertionError(f"ssm-train: launches {counts}, want {want} "
-                             f"in {SSM_TRAIN_STEPS} steps")
+    out, counts, peak = run_trainer(torch, "ssm-train",
+                                    train_argv("mamba2-370m", W,
+                                               SSM_TRAIN_SEQ,
+                                               SSM_TRAIN_STEPS),
+                                    SSM_TRAIN_STEPS, want)
     a_log = out["params"]["scan"]["pos0"]["ssm"]["A_log"]
     if tuple(a_log.shape) != (W, cfg.n_layers, 32) or \
             not bool(torch.isfinite(a_log).all()):
@@ -2266,14 +2325,6 @@ def phase_moe_train_check(torch, device):
             f"launches {counts}")
 
 
-def moe_train_argv(steps):
-    """The trainer's flags on the MoE training path: full granite-moe,
-    pipelined, int8 wire, MOE_W workers, batch 2, seq 128."""
-    return ["--arch", MOE_ARCH, "--workers", str(MOE_W), "--pipelined",
-            "--wire-format", "int8", "--batch", "2", "--seq", str(MOE_SEQ),
-            "--steps", str(steps), "--log-every", "1"]
-
-
 def moe_layer_fwd_bwd(torch, cfg, layer, device):
     """One MoE layer's apply_moe forward+backward at the training step's
     shapes (MOE_W workers, batch 2, seq MOE_SEQ) on ``layer``'s weights
@@ -2319,30 +2370,17 @@ def phase_moe_train(torch, device):
     backward of one step by CUDA events and a profile of it, and one
     layer's apply_moe forward+backward (bitwise repeatable) times the
     layers: MoE's share of the forward+backward."""
-    from repro_torch import kernels as K
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.packing import unpack_w
     from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
-    from repro_torch.launch import train
     from repro_torch.launch.steps import packed_loss_and_grad
 
     cfg = get_arch(MOE_ARCH)
-    argv = moe_train_argv(MOE_TRAIN_STEPS)
-    log(f"[moe-train] python -m repro_torch.launch.train {' '.join(argv)}")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    out = train.main(argv)
-    torch.cuda.synchronize()
-    counts = K.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    out, counts, peak = run_trainer(
+        torch, "moe-train",
+        train_argv(MOE_ARCH, MOE_W, MOE_SEQ, MOE_TRAIN_STEPS), MOE_TRAIN_STEPS,
+        {REDUCE: MOE_TRAIN_STEPS, APPLY: MOE_TRAIN_STEPS})
     losses = out["losses"]
-    if len(losses) != MOE_TRAIN_STEPS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"moe-train: losses {losses}")
-    want = {REDUCE: MOE_TRAIN_STEPS, APPLY: MOE_TRAIN_STEPS}
-    if any(counts.get(k) != v for k, v in want.items()):
-        raise AssertionError(f"moe-train: launches {counts}, want {want} "
-                             f"in {MOE_TRAIN_STEPS} steps")
     router = out["params"]["scan"]["pos0"]["moe"]["router"]
     if tuple(router.shape) != (MOE_W, cfg.n_layers, cfg.d_model,
                                cfg.n_experts) or \
@@ -2386,19 +2424,22 @@ def phase_moe_train(torch, device):
 def phase_moe_blend(torch, device):
     """B1r/B1a on granite-moe's packed ensemble at each of MOE_BLEND_WS
     workers: MOE_W, the ensemble [moe-train] blends, then 4."""
-    for wn in MOE_BLEND_WS:
-        moe_blend(torch, device, wn)
-
-
-def moe_blend(torch, device, wn):
-    """B1r/B1a on granite-moe's packed ensemble at ``wn`` workers, whose
-    last worker's rows lie past element 2^31: pack_w/unpack_w of the
-    model bitwise on the last worker, the int8 exchange (quantize + roll)
-    bitwise on its rows, then each kernel against its plain version on
-    that worker's rows — the reduce over the last partition, the apply
-    on windows across the partition's edges and the ensemble's end — and
-    both kernels' times against their bounds."""
     from repro_torch.configs.registry import get_arch
+
+    for wn in MOE_BLEND_WS:
+        blend_check(torch, device, "moe-blend", get_arch(MOE_ARCH), wn,
+                    " (the [moe-train] path's ensemble)" if wn == MOE_W
+                    else "")
+
+
+def blend_check(torch, device, tag, cfg, wn, note=""):
+    """B1r/B1a on ``cfg``'s packed ensemble at ``wn`` workers (its last
+    worker's rows past element 2^31 wherever the ensemble is larger):
+    pack_w/unpack_w of the model bitwise on the last worker, the int8
+    exchange (quantize + roll) bitwise on its rows, then each kernel
+    against its plain version on that worker's rows — the reduce over the
+    last partition, the apply on windows across the partition's edges and
+    the ensemble's end — and both kernels' times against their bounds."""
     from repro_torch.core import gossip as G
     from repro_torch.core.packing import (pack_spec_w, pack_w,
                                           quantize_rows, unpack_w)
@@ -2411,7 +2452,6 @@ def moe_blend(torch, device, wn):
     from repro_torch.launch.train import gossip_config
     from repro_torch.models.model import init_model
 
-    cfg = get_arch(MOE_ARCH)
     gcfg = gossip_config(wn, wire_format="int8")
     params = init_model(cfg, 0, device=device)
     wp = tree_map(lambda x: x.expand((wn,) + tuple(x.shape)), params)
@@ -2422,16 +2462,17 @@ def moe_blend(torch, device, wn):
     for a, b in zip(flatten_sorted(params)[0],
                     flatten_sorted(unpack_w(w, spec))[0]):
         if not torch.equal(b[-1], a):
-            raise AssertionError("moe-blend: unpack_w(pack_w(.)) of the "
-                                 "last worker is not the model")
+            raise AssertionError(f"{tag}: unpack_w(pack_w(.)) of the "
+                                 f"last worker is not the model")
     del params, wp
     torch.cuda.empty_cache()
     br, rows = spec.block_rows, spec.rows
     r0, r1 = G.packed_row_ranges(spec, gcfg)[-1]
     first = ((wn - 1) * rows + r0) * 512
-    if first < PAST_ELEMENT:
-        raise AssertionError(f"moe-blend: the last worker's range starts "
-                             f"at element {first:,}, not past 2^31")
+    past = w.numel() > PAST_ELEMENT
+    if past and first < PAST_ELEMENT:
+        raise AssertionError(f"{tag}: the last worker's range starts at "
+                             f"element {first:,}, not past 2^31")
     g = torch.Generator(device=device).manual_seed(3)
     dw = torch.empty_like(w)
     for i in range(wn):      # distinct workers, and a local step
@@ -2445,8 +2486,8 @@ def moe_blend(torch, device, wn):
     if not (torch.equal(ext[-1, r0:r1], q) and torch.equal(
             scales[-1, r0 // br:r1 // br], sc) and not ext[-1, :r0].any()
             and not ext[-1, r1:].any()):
-        raise AssertionError("moe-blend: the int8 exchange differs on the "
-                             "last worker's rows")
+        raise AssertionError(f"{tag}: the int8 exchange differs on the "
+                             f"last worker's rows")
     del q, sc
     ext, scales = ext[:, None], scales[:, None]
     red = lambda: gossip_reduce_w_resident(           # noqa: E731
@@ -2455,7 +2496,8 @@ def moe_blend(torch, device, wn):
         w[-1:], dw[-1:], ext[-1:], (r0, r1), scales[-1:], block_rows=br)
     acc = red()
     torch.cuda.synchronize()
-    err_r, rel = check_reduce(torch, "B1r (past 2^31)", acc[-1:],
+    where = " (past 2^31)" if past else ""
+    err_r, rel = check_reduce(torch, f"B1r{where}", acc[-1:],
                               red_plain(), lambda: red()[-1:])
     gates = gossip_gates(acc, EPS)
     inv = 1.0 / (gates.sum(dim=1) + 1.0)
@@ -2474,7 +2516,7 @@ def moe_blend(torch, device, wn):
             w[-1:, a:b], dw[-1:, a:b], ext[-1:, :, a:b], gates[-1:],
             inv[-1:], LR, (r0 - a, r1 - a), scales[-1:, :, a // br:b // br],
             block_rows=br)
-        err_a = max(err_a, check_apply(torch, "B1a (past 2^31)",
+        err_a = max(err_a, check_apply(torch, f"B1a{where}",
                                        out[-1:, a:b], out_p))
     del out, out_p
     torch.cuda.empty_cache()
@@ -2486,17 +2528,16 @@ def moe_blend(torch, device, wn):
     b_r, by_r = bound_ms(n_in * 9 + sc_b + wn * 12, n_in * 9)
     b_a, by_a = bound_ms(n_all * 12 + n_in + sc_b + wn * 8 + 4,
                          n_all * 2 + n_in * 7)
-    log(f"[moe-blend] B1r/B1a on granite-moe's ensemble {tuple(w.shape)} "
+    log(f"[{tag}] B1r/B1a on {cfg.name}'s ensemble {tuple(w.shape)} "
         f"({w.numel():,} elements), last partition rows [{r0}, {r1}), the "
         f"last worker's from element {first:,}: exchange and pack bitwise; "
         f"B1r vs plain (last worker) rel err {rel:.2e}, bitwise "
         f"repeatable; B1a vs plain on {len(windows)} windows max abs err "
         f"{err_a:.3e}")
-    log(f"[moe-blend] B1r {ms_r:.4f} ms (bound {b_r:.4f} ms, {by_r}, "
+    log(f"[{tag}] B1r {ms_r:.4f} ms (bound {b_r:.4f} ms, {by_r}, "
         f"{b_r / ms_r:.1%}; plain on the last worker's rows {plain_r:.4f} "
         f"ms), B1a {ms_a:.4f} ms (bound {b_a:.4f} ms, {by_a}, "
-        f"{b_a / ms_a:.1%}) at R={rows}, W={wn}"
-        + (" (the [moe-train] path's ensemble)" if wn == MOE_W else ""))
+        f"{b_a / ms_a:.1%}) at R={rows}, W={wn}{note}")
     del w, dw, ext, scales, acc
     torch.cuda.empty_cache()
 
@@ -2527,166 +2568,505 @@ def bf16_steps(torch, got, want):
 
 
 def phase_moe_serve_check(torch, device):
-    """Reduced granite-moe and phi3.5-moe (batch 2, prompts of 32), the
-    same CPU-made weights and prompts on the GPU and the CPU, the CPU's
-    greedy tokens fed to every run.  Each decode step runs three times
-    on the GPU's side: from the CPU's cache before it (the step alone),
-    and free-running from the GPU's own cache — which the CPU then also
-    steps from.  Held within TOL_SERVE of their largest magnitude, with
-    the greedy tokens equal off near-ties: the prefill's logits, each
-    step's from the CPU's cache, and the free-running GPU's against the
-    CPU's step on that same cache; every cache leaf after each step
-    close.  The free-running logits against the CPU's own free-running
-    ones are reported beside what the cache's difference alone does (the
-    CPU on the GPU's cache against the CPU on its own), and the bf16
-    cache elements that differ in bf16 steps: the KV cache is bf16, and
-    a GPU-vs-CPU difference of one f32 rounding can round an element to
-    the neighbouring bf16 value, which free-running decode carries into
-    every later step."""
+    """Reduced granite-moe and phi3.5-moe (batch 2, prompts of 32) through
+    :func:`serve_check_free`."""
+    for arch in (MOE_ARCH, PHI_ARCH):
+        serve_check_free(torch, device, arch, "moe-serve-check")
+
+
+def serve_check_free(torch, device, arch, tag, plen=32, steps=4):
+    """Reduced ``arch`` (batch 2, prompts of ``plen``), the same CPU-made
+    weights and prompts on the GPU and the CPU, the CPU's greedy tokens
+    fed to every run.  Each decode step runs three times on the GPU's
+    side: from the CPU's cache before it (the step alone), and
+    free-running from the GPU's own cache — which the CPU then also steps
+    from.  Held within TOL_SERVE of their largest magnitude, with the
+    greedy tokens equal off near-ties: the prefill's logits, each step's
+    from the CPU's cache, and the free-running GPU's against the CPU's
+    step on that same cache; every cache leaf after each step close.  The
+    free-running logits against the CPU's own free-running ones are
+    reported beside what the cache's difference alone does (the CPU on the
+    GPU's cache against the CPU on its own), and the bf16 cache elements
+    that differ in bf16 steps: the KV cache is bf16, and a GPU-vs-CPU
+    difference of one f32 rounding can round an element to the
+    neighbouring bf16 value, which free-running decode carries into every
+    later step.  Returns the GPU's cache after the prefill."""
     from repro_torch import kernels as K
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.tree import tree_map
     from repro_torch.models import model as M
     from repro_torch.models.model import init_model
 
-    plen, steps = 32, 4
-    for arch in (MOE_ARCH, PHI_ARCH):
-        cfg = get_arch(arch).reduced()
-        params = init_model(cfg, 0, device="cpu")
-        pg = tree_map(lambda x: x.to(device), params)
-        prompt = torch.randint(0, cfg.vocab, (2, plen),
-                               generator=torch.Generator().manual_seed(1))
-        tag = f"moe-serve-check {arch}"
-        K.reset_launch_counts()
-        with torch.no_grad():
-            last_c, cache_c = M.prefill(cfg, params, {"tokens": prompt},
-                                        cache_len=plen + steps)
-            last_g, free_g = M.prefill(cfg, pg, {"tokens": prompt.to(
-                device)}, cache_len=plen + steps)
-            pairs = [(last_c, last_g.cpu())]
-            cache_errs = [check_cache(torch, tag, free_g, cache_c)]
-            drift = [bf16_steps(torch, free_g, cache_c)]
-            on_own, free, carry = [], [], []
-            tok = last_c.argmax(-1)
-            for i in range(steps):
-                cache_g = tree_map(lambda x: x.to(device), cache_c)
-                cache_x = tree_map(lambda x: x.cpu(), free_g)
-                step_c, cache_c = M.decode_step(cfg, params, tok, plen + i,
-                                                cache_c)
-                step_g, cache_g = M.decode_step(cfg, pg, tok.to(device),
-                                                plen + i, cache_g)
-                step_f, free_g = M.decode_step(cfg, pg, tok.to(device),
-                                               plen + i, free_g)
-                step_x, cache_x = M.decode_step(cfg, params, tok, plen + i,
-                                                cache_x)
-                pairs.append((step_c, step_g.cpu()))
-                on_own.append((step_x, step_f.cpu()))
-                cache_errs.append(check_cache(torch, tag, cache_g, cache_c))
-                check_cache(torch, f"{tag} free-running", free_g, cache_x)
-                drift.append(bf16_steps(torch, free_g, cache_c))
-                free.append(float((step_f.cpu() - step_c).abs().max()))
-                carry.append(float((step_x - step_c).abs().max()))
-                tok = step_c.argmax(-1)
-        counts = K.launch_counts()
-        if counts:
-            raise AssertionError(f"{tag}: launches {counts}")
-        errs, near = check_logits(torch, tag, pairs)
-        own, near_own = check_logits(torch, f"{tag} free-running", on_own)
-        scale = float(pairs[-1][0].abs().max())
-        fmt = lambda v: [float(f"{e:.3e}") for e in v]  # noqa: E731
-        log(f"[moe-serve-check] reduced {arch}, batch 2, prompt {plen}, "
-            f"{steps} decode steps each from the CPU's cache: GPU vs CPU "
-            f"logits max abs err {fmt(errs)} (largest magnitude "
-            f"{scale:.3f}), greedy tokens equal ({near} near ties), cache "
-            f"leaves max abs err {max(cache_errs):.3e}")
-        log(f"[moe-serve-check] reduced {arch}, free-running: the GPU's "
-            f"decode on its own cache vs the CPU's on that cache, max abs "
-            f"err {fmt(own)} ({near_own} near ties); vs the CPU's free "
-            f"run {fmt(free)} ({max(free) / scale:.2e} of the largest "
-            f"magnitude), the cache's difference alone (CPU on the GPU's "
-            f"cache vs on its own) {fmt(carry)}; bf16 cache elements that "
-            f"differ (of {drift[0][0]:,}; after the prefill, then each "
-            f"step): {[d[1] for d in drift]}, of them one bf16 step apart "
-            f"{[d[2] for d in drift]}, most steps apart "
-            f"{[d[3] for d in drift]}, the largest magnitude of an element "
-            f"more than one step apart {max(d[4] for d in drift):.3e}, the "
-            f"largest difference {max(d[5] for d in drift):.3e}")
+    cfg = get_arch(arch).reduced()
+    params = init_model(cfg, 0, device="cpu")
+    pg = tree_map(lambda x: x.to(device), params)
+    prompt = torch.randint(0, cfg.vocab, (2, plen),
+                           generator=torch.Generator().manual_seed(1))
+    tag = f"{tag} {arch}"
+    K.reset_launch_counts()
+    with torch.no_grad():
+        last_c, cache_c = M.prefill(cfg, params, {"tokens": prompt},
+                                    cache_len=plen + steps)
+        last_g, free_g = M.prefill(cfg, pg, {"tokens": prompt.to(device)},
+                                   cache_len=plen + steps)
+        prefilled = tree_map(torch.clone, free_g)
+        pairs = [(last_c, last_g.cpu())]
+        cache_errs = [check_cache(torch, tag, free_g, cache_c)]
+        drift = [bf16_steps(torch, free_g, cache_c)]
+        on_own, free, carry = [], [], []
+        tok = last_c.argmax(-1)
+        for i in range(steps):
+            # copies even where the device is the CPU's: decode writes its
+            # cache in place
+            cache_g = tree_map(lambda x: x.to(device, copy=True), cache_c)
+            cache_x = tree_map(lambda x: x.to("cpu", copy=True), free_g)
+            step_c, cache_c = M.decode_step(cfg, params, tok, plen + i,
+                                            cache_c)
+            step_g, cache_g = M.decode_step(cfg, pg, tok.to(device),
+                                            plen + i, cache_g)
+            step_f, free_g = M.decode_step(cfg, pg, tok.to(device),
+                                           plen + i, free_g)
+            step_x, cache_x = M.decode_step(cfg, params, tok, plen + i,
+                                            cache_x)
+            pairs.append((step_c, step_g.cpu()))
+            on_own.append((step_x, step_f.cpu()))
+            cache_errs.append(check_cache(torch, tag, cache_g, cache_c))
+            check_cache(torch, f"{tag} free-running", free_g, cache_x)
+            drift.append(bf16_steps(torch, free_g, cache_c))
+            free.append(float((step_f.cpu() - step_c).abs().max()))
+            carry.append(float((step_x - step_c).abs().max()))
+            tok = step_c.argmax(-1)
+    counts = K.launch_counts()
+    if counts:
+        raise AssertionError(f"{tag}: launches {counts}")
+    errs, near = check_logits(torch, tag, pairs)
+    own, near_own = check_logits(torch, f"{tag} free-running", on_own)
+    scale = float(pairs[-1][0].abs().max())
+    fmt = lambda v: [float(f"{e:.3e}") for e in v]  # noqa: E731
+    log(f"[{tag}] reduced, batch 2, prompt {plen}, {steps} decode steps "
+        f"each from the CPU's cache: GPU vs CPU logits max abs err "
+        f"{fmt(errs)} (largest magnitude {scale:.3f}), greedy tokens equal "
+        f"({near} near ties), cache leaves max abs err "
+        f"{max(cache_errs):.3e}")
+    log(f"[{tag}] reduced, free-running: the GPU's decode on its own cache "
+        f"vs the CPU's on that cache, max abs err {fmt(own)} ({near_own} "
+        f"near ties); vs the CPU's free run {fmt(free)} "
+        f"({max(free) / scale:.2e} of the largest magnitude), the cache's "
+        f"difference alone (CPU on the GPU's cache vs on its own) "
+        f"{fmt(carry)}; bf16 cache elements that differ (of "
+        f"{drift[0][0]:,}; after the prefill, then each step): "
+        f"{[d[1] for d in drift]}, of them one bf16 step apart "
+        f"{[d[2] for d in drift]}, most steps apart {[d[3] for d in drift]},"
+        f" the largest magnitude of an element more than one step apart "
+        f"{max(d[4] for d in drift):.3e}, the largest difference "
+        f"{max(d[5] for d in drift):.3e}")
+    return prefilled
 
 
 def phase_moe_serve(torch, device):
     """``launch.serve.main`` on full granite-moe (batch 4, prompt 2048, 32
     new tokens: every 'G' layer of the prefill through attention_flash,
-    counted) and its steady prefill and decode times; then phi3.5-moe at
-    full width with its depth cut to PHI_LAYERS through
-    M.prefill/``serve.generate``: finite logits, its steady times and
-    peak memory."""
+    counted); then :func:`serve_readings` of it and of phi3.5-moe at full
+    width with its depth cut to PHI_LAYERS."""
     import dataclasses
 
     from repro_torch.configs.registry import get_arch
-    from repro_torch.core.tree import flatten_sorted
-    from repro_torch.launch import serve
-    from repro_torch.models import blocks
-    from repro_torch.models import model as M
 
     cfg = get_arch(MOE_ARCH)
-    argv = ["--arch", MOE_ARCH, "--batch", str(SERVE_BATCH), "--prompt-len",
+    serve_main_checked(torch, "moe-serve", cfg)
+    phi = dataclasses.replace(get_arch(PHI_ARCH), n_layers=PHI_LAYERS)
+    serve_readings(torch, device, cfg, "moe-serve", "full size")
+    serve_readings(torch, device, phi, "moe-serve",
+                   f"full width, n_layers cut from "
+                   f"{get_arch(PHI_ARCH).n_layers} to {PHI_LAYERS}")
+
+
+def flash_windows(cfg):
+    """The ``window=`` of attention_flash for each attention layer of a
+    prefill of ``cfg`` at seq >= FLASH_MIN_SEQ: 'L' its window, 'G'
+    none."""
+    return [cfg.sliding_window if t == "L" else None
+            for t in cfg.layer_types if t in ("G", "L")]
+
+
+def windows_of(calls):
+    """The ``window=`` of each counted attention_flash call."""
+    return [k.get("window") for k in calls]
+
+
+def serve_main_checked(torch, tag, cfg):
+    """``launch.serve.main`` on full ``cfg`` (batch SERVE_BATCH, prompt
+    SERVE_PROMPT, SERVE_NEW new tokens), attention_flash's calls counted:
+    the tokens in the vocabulary, one call an attention layer of the
+    prefill with that layer's window; its peak memory."""
+    from repro_torch.launch import serve
+    from repro_torch.models import blocks
+
+    argv = ["--arch", cfg.name, "--batch", str(SERVE_BATCH), "--prompt-len",
             str(SERVE_PROMPT), "--new-tokens", str(SERVE_NEW)]
-    log(f"[moe-serve] python -m repro_torch.launch.serve {' '.join(argv)}")
+    log(f"[{tag}] python -m repro_torch.launch.serve {' '.join(argv)}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with count_calls(blocks, "attention_flash") as flash:
         toks = serve.main(argv)
+    want = flash_windows(cfg)
     if tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW) or \
             not bool(((toks >= 0) & (toks < cfg.vocab)).all()) or \
-            len(flash) != cfg.n_layers:
-        raise AssertionError(f"moe-serve: tokens {tuple(toks.shape)}, "
-                             f"attention_flash called {len(flash)} times "
-                             f"for {cfg.n_layers} 'G' layers of a prefill")
-    log(f"[moe-serve] {MOE_ARCH}: attention_flash {len(flash)} calls (one "
-        f"per 'G' layer of the {SERVE_PROMPT}-token prefill); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the "
-        f"weights' init included)")
-    phi = dataclasses.replace(get_arch(PHI_ARCH), n_layers=PHI_LAYERS)
-    for c, note in ((cfg, "full size"),
-                    (phi, f"full width, n_layers cut from "
-                          f"{get_arch(PHI_ARCH).n_layers} to {PHI_LAYERS}")):
-        torch.cuda.empty_cache()
-        params = M.init_model(c, 0, device=device)
-        n_params = sum(v.numel() for v in flatten_sorted(params)[0])
-        batch = {"tokens": torch.randint(
-            0, c.vocab, (SERVE_BATCH, SERVE_PROMPT), device=device,
-            generator=torch.Generator(device=device).manual_seed(1))}
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        cache_len = SERVE_PROMPT + SERVE_NEW
-        with torch.no_grad():
-            last, _ = M.prefill(c, params, batch, cache_len=cache_len)
-        if not bool(torch.isfinite(last[:, :c.vocab]).all()):
-            raise AssertionError(f"moe-serve {c.name}: prefill logits not "
-                                 f"finite")
-        del last
-        with count_calls(blocks, "attention_flash") as flash:
-            toks, t = serve_timings(torch, c, params, batch, "moe-serve")
-        if len(flash) != 2 * c.n_layers or tuple(toks.shape) != \
-                (SERVE_BATCH, SERVE_NEW) or \
-                not bool(((toks >= 0) & (toks < c.vocab)).all()):
-            raise AssertionError(f"moe-serve {c.name}: tokens "
-                                 f"{tuple(toks.shape)}, attention_flash "
-                                 f"{len(flash)} calls in 2 prefills")
-        log(f"[moe-serve] {c.name} ({note}; {n_params:,} params, "
-            f"{n_params * 4 / 2**30:.2f} GiB f32): steady prefill "
-            f"{t['prefill_ms']:.3f} ms, decode "
-            f"{t['decode_ms_per_token']:.3f} ms per token (batch "
-            f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_NEW} new "
-            f"tokens); peak memory while serving "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        with torch.no_grad():
-            profile_step(torch, "moe-serve-profile", lambda: M.prefill(
-                c, params, batch, cache_len=cache_len),
-                what=f"one {c.name} prefill")
-        del params, batch, toks
+            windows_of(flash) != want:
+        raise AssertionError(f"{tag} {cfg.name}: tokens {tuple(toks.shape)},"
+                             f" attention_flash windows {windows_of(flash)},"
+                             f" want {want}")
+    n_win = sum(w is not None for w in want)
+    log(f"[{tag}] {cfg.name}: attention_flash {len(flash)} calls in the "
+        f"{SERVE_PROMPT}-token prefill, one per attention layer ("
+        + (f"{n_win} 'L' with window {cfg.sliding_window}, " if n_win else "")
+        + f"{len(want) - n_win} 'G' without); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the weights' "
+        f"init included)")
+    del toks
     torch.cuda.empty_cache()
+
+
+def serve_readings(torch, device, cfg, tag, note):
+    """``cfg`` (described by ``note``) initialized on the card: finite
+    prefill logits, :func:`serve_timings` (its two prefills' attention_flash
+    calls counted against :func:`flash_windows`), the peak memory while
+    serving and a profile of one prefill."""
+    from repro_torch.core.tree import flatten_sorted
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+
+    torch.cuda.empty_cache()
+    params = M.init_model(cfg, 0, device=device)
+    n_params = sum(v.numel() for v in flatten_sorted(params)[0])
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), device=device,
+        generator=torch.Generator(device=device).manual_seed(1))}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache_len = SERVE_PROMPT + SERVE_NEW
+    with torch.no_grad():
+        last, _ = M.prefill(cfg, params, batch, cache_len=cache_len)
+    if not bool(torch.isfinite(last[:, :cfg.vocab]).all()):
+        raise AssertionError(f"{tag} {cfg.name}: prefill logits not finite")
+    del last
+    with count_calls(blocks, "attention_flash") as flash:
+        toks, t = serve_timings(torch, cfg, params, batch, tag)
+    if windows_of(flash) != 2 * flash_windows(cfg) or \
+            tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW) or \
+            not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{tag} {cfg.name}: tokens {tuple(toks.shape)},"
+                             f" attention_flash windows {windows_of(flash)} "
+                             f"in 2 prefills")
+    log(f"[{tag}] {cfg.name} ({note}; {n_params:,} params, "
+        f"{n_params * 4 / 2**30:.2f} GiB f32): steady prefill "
+        f"{t['prefill_ms']:.3f} ms, decode {t['decode_ms_per_token']:.3f} ms "
+        f"per token (batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+        f"{SERVE_NEW} new tokens); peak memory while serving "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with torch.no_grad():
+        profile_step(torch, f"{tag}-profile", lambda: M.prefill(
+            cfg, params, batch, cache_len=cache_len),
+            what=f"one {cfg.name} prefill")
+    del params, batch, toks
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the Gemma slice: 'L' (sliding-window) attention, scaled embeddings,
+# softcaps and the RG-LRU ('R') in plain torch; gemma3-1b trained at full
+# size and recurrentgemma-9b at full width through B1r/B1a, both served at
+# full size
+# ---------------------------------------------------------------------------
+
+GEMMA_ARCH, RG_ARCH = "gemma3-1b", "recurrentgemma-9b"
+GEMMA_W = 2                      # [gemma-train] workers: at 4 and seq 1024
+#                                  a step runs out of the 80 GB (PERF.md §4)
+GEMMA_SEQ = 1024                 # [gemma-train]: past the window of 512
+GEMMA_BLEND_WS = (GEMMA_W, 4)    # [gemma-blend]: the path's ensemble, then
+#                                  W=4's (past 2^31)
+RG_W, RG_LAYERS = 2, 3           # [rg-train]: one (R, R, L) cycle, full width
+RG_SEQ = 128                     # [rg-train]'s trainer run
+RG_WINDOW_SEQ = 4096             # its 'L' layer's reading: window 2048 binds
+GEMMA_STEPS = 8
+GB_KERNELS = ("reduce_partial_kernel", "reduce_finalize_kernel",
+              "apply_kernel")    # B1r/B1a's device kernels, by name
+
+
+def phase_gemma_train_check(torch, device):
+    """Reduced gemma3-1b (6 layers, window 16) and recurrentgemma-9b (3
+    layers, lru_width 256) at seq 32, where the window binds: 3 pipelined
+    int8 steps from distinct worker starts, GPU (B1r/B1a) against CPU:
+    losses rel 1e-4, ensembles atol 1e-4, n_good equal, not all 0."""
+    from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
+
+    for arch in (GEMMA_ARCH, RG_ARCH):
+        gpu, cpu, n_good, err, counts, seed = pipelined_check(
+            torch, device, arch, "gemma-train-check")
+        if counts.get(REDUCE) != 3 or counts.get(APPLY) != 3:
+            raise AssertionError(f"gemma-train-check {arch}: launches "
+                                 f"{counts} in 3 steps")
+        log(f"[gemma-train-check] reduced {arch}, W={W}, batch 2, seq 32, 3 "
+            f"pipelined int8 steps, draw seed {seed}: GPU vs CPU losses "
+            f"{[round(l, 6) for l in gpu]} vs {[round(l, 6) for l in cpu]}"
+            f", n_good {n_good}, max |ensemble diff| {err:.3e}; GPU "
+            f"launches {counts}")
+
+
+def train_readings(torch, tag, cfg, state, spec, wn, seq, device):
+    """On a trained packed ``state`` of ``wn`` workers (batch 2, ``seq``
+    tokens): the device time of B1r/B1a in one whole pipelined step, then
+    one step's forward+backward by CUDA events and a profile of it.  The
+    allocator's cache is emptied before each: a step needs most of the
+    card, and the cache of the reading before holds it in pieces."""
+    from repro_torch.core.asgd import ASGDConfig
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step, packed_loss_and_grad
+
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (wn, 2, seq), device=device,
+        generator=torch.Generator(device=device).manual_seed(0))}
+    packed = state["params"]
+    step = make_train_step(cfg, pack_spec=spec,
+                           gcfg=train.gossip_config(wn, wire_format="int8"),
+                           acfg=ASGDConfig(eps=EPS), pipelined=True)
+    torch.cuda.empty_cache()
+    dev = device_ms(torch, lambda: step(packed, state["gossip"],
+                                        state["opt"], batch, 0, 1),
+                    GB_KERNELS, 3)
+    if dev is None or len(dev[2]) != 3:
+        raise AssertionError(f"{tag}: B1r/B1a's kernels not traced in a "
+                             f"step: {dev}")
+    log(f"[{tag}] B1r/B1a in one pipelined step: {dev[0]:.4f} ms of device "
+        f"time ({dev[1]} device launches: {', '.join(dev[2])}; "
+        f"torch.profiler over 3 steps kept {dev[3]} of {dev[1] * 3} events)")
+    torch.cuda.empty_cache()
+    fb = lambda: packed_loss_and_grad(cfg, packed, batch, spec)  # noqa: E731
+    t_fb = cuda_ms(fb, 3)
+    log(f"[{tag}] forward+backward of one step (W={wn}, batch 2, seq "
+        f"{seq}, packed gradient): {t_fb:.3f} ms by CUDA events")
+    torch.cuda.empty_cache()
+    profile_step(torch, f"{tag}-profile", fb, what="one forward+backward")
+
+
+def train_summary(out, counts, peak):
+    """A training run's losses, step times and memory, for the log."""
+    return (f"launches {counts} over {GEMMA_STEPS} steps; losses "
+            f"{[round(l, 4) for l in out['losses']]}; step seconds "
+            f"{[round(t, 4) for t in out['step_seconds']]} (first includes "
+            f"warm-up); steady median "
+            f"{steady_median(out['step_seconds']) * 1e3:.2f} ms; n_good "
+            f"{out['n_good']}; peak memory {peak:.2f} GiB")
+
+
+def phase_gemma_train(torch, device):
+    """``repro_torch.launch.train`` on full gemma3-1b (26 layers: 22 'L',
+    4 'G'), GEMMA_W workers, batch 2, seq GEMMA_SEQ (past the window of
+    512), --pipelined --wire-format int8, counters zeroed before and read
+    after — B1r/B1a once a step — its steady step time and peak memory,
+    then :func:`train_readings`."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
+
+    cfg = get_arch(GEMMA_ARCH)
+    out, counts, peak = run_trainer(
+        torch, "gemma-train",
+        train_argv(GEMMA_ARCH, GEMMA_W, GEMMA_SEQ, GEMMA_STEPS), GEMMA_STEPS,
+        {REDUCE: GEMMA_STEPS, APPLY: GEMMA_STEPS})
+    wq = out["params"]["scan"]["pos0"]["attn"]["wq"]
+    n_full = cfg.n_layers // len(cfg.pattern_cycle)
+    if tuple(wq.shape) != (GEMMA_W, n_full, cfg.d_model, cfg.n_heads,
+                           cfg.resolved_head_dim) or \
+            not bool(torch.isfinite(wq).all()):
+        raise AssertionError(f"gemma-train: final average wq "
+                             f"{tuple(wq.shape)} not finite/shaped")
+    packed = out["state"]["params"]
+    log(f"[gemma-train] {cfg.name} ({cfg.n_layers} layers: "
+        f"{cfg.layer_types.count('L')} 'L' with window "
+        f"{cfg.sliding_window}, {cfg.layer_types.count('G')} 'G'), "
+        f"W={GEMMA_W}, seq {GEMMA_SEQ}, packed ensemble "
+        f"{tuple(packed.shape)} = {packed.numel():,} f32 elements; "
+        + train_summary(out, counts, peak))
+    state, spec = out["state"], out["spec"]
+    del out, wq, packed
+    torch.cuda.empty_cache()
+    train_readings(torch, "gemma-train", cfg, state, spec, GEMMA_W,
+                   GEMMA_SEQ, device)
+    del state
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def depth_cut(module, arch, n_layers):
+    """``module.get_arch`` gives ``arch`` with its depth cut to
+    ``n_layers`` inside the block (a trainer has no depth flag)."""
+    import dataclasses
+
+    real = module.get_arch
+
+    def cut(name):
+        cfg = real(name)
+        return dataclasses.replace(cfg, n_layers=n_layers) \
+            if name == arch else cfg
+
+    module.get_arch = cut
+    try:
+        yield
+    finally:
+        module.get_arch = real
+
+
+def rg_cut():
+    """recurrentgemma-9b at full width, its depth cut to RG_LAYERS."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    return dataclasses.replace(get_arch(RG_ARCH), n_layers=RG_LAYERS)
+
+
+def l_layer_fwd_bwd(torch, cfg, layer, wn, seq, device):
+    """One 'L' layer's apply_layer forward+backward at ``wn`` workers,
+    batch 2, ``seq`` tokens (its attention through attention_flash with
+    the window, counted) on ``layer``'s weights and a seeded input; its
+    time by CUDA events.  Returns (ms, the attention_flash windows)."""
+    from repro_torch.core.tree import flatten_sorted, tree_map
+    from repro_torch.models import blocks
+
+    leaves = tree_map(lambda v: v.detach().clone().requires_grad_(True),
+                      layer)
+    flat = flatten_sorted(leaves)[0]
+    g = torch.Generator(device=device).manual_seed(2)
+    shape = (wn, 2, seq, cfg.d_model)
+    x = torch.randn(shape, generator=g, device=device).requires_grad_(True)
+    r = torch.randn(shape, generator=g, device=device)
+    pos = torch.arange(seq, device=device)
+
+    def fwd_bwd():
+        y = blocks.apply_layer(cfg, "L", leaves, x, pos)[0]
+        return torch.autograd.grad((y * r).sum(), [x] + flat)
+
+    with count_calls(blocks, "attention_flash") as flash:
+        grads = fwd_bwd()
+    if not all(bool(torch.isfinite(t).all()) for t in grads):
+        raise AssertionError("rg-train: an 'L' layer's gradient is not "
+                             "finite")
+    del grads
+    return cuda_ms(fwd_bwd, 3), windows_of(flash)
+
+
+def phase_rg_train(torch, device):
+    """recurrentgemma-9b at full width with its depth cut to RG_LAYERS (one
+    (R, R, L) cycle) through ``repro_torch.launch.train`` (its get_arch
+    cut by :func:`depth_cut`), RG_W workers, batch 2, seq RG_SEQ,
+    pipelined int8, counters zeroed before and read after — B1r/B1a once
+    a step — its steady step time and peak memory, then
+    :func:`train_readings`, and the trained 'L' layer's forward+backward
+    at RG_WINDOW_SEQ tokens, where its window of 2048 binds."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
+    from repro_torch.launch import train
+
+    cfg = rg_cut()
+    with depth_cut(train, RG_ARCH, RG_LAYERS):
+        out, counts, peak = run_trainer(
+            torch, "rg-train", train_argv(RG_ARCH, RG_W, RG_SEQ, GEMMA_STEPS),
+            GEMMA_STEPS, {REDUCE: GEMMA_STEPS, APPLY: GEMMA_STEPS})
+    state, spec = out["state"], out["spec"]
+    if not bool(torch.isfinite(state["params"]).all()):
+        raise AssertionError("rg-train: the ensemble is not finite")
+    log(f"[rg-train] {cfg.name} at full width, n_layers cut from "
+        f"{get_arch(RG_ARCH).n_layers} to {RG_LAYERS} "
+        f"({''.join(cfg.layer_types)}), W={RG_W}, seq {RG_SEQ}, packed "
+        f"ensemble {tuple(state['params'].shape)} = "
+        f"{state['params'].numel():,} f32 elements ({cfg.param_count():,} "
+        f"params a replica, analytic); " + train_summary(out, counts, peak))
+    layer = tree_map(lambda v: v[:, 0], out["params"]["scan"]["pos2"])
+    del out
+    torch.cuda.empty_cache()
+    train_readings(torch, "rg-train", cfg, state, spec, RG_W, RG_SEQ,
+                   device)
+    del state
+    torch.cuda.empty_cache()
+    ms, windows = l_layer_fwd_bwd(torch, cfg, layer, RG_W, RG_WINDOW_SEQ,
+                                  device)
+    if windows != [cfg.sliding_window]:
+        raise AssertionError(f"rg-train: the 'L' layer's attention_flash "
+                             f"windows {windows}, want "
+                             f"[{cfg.sliding_window}]")
+    log(f"[rg-train] the trained 'L' layer's forward+backward at W={RG_W}, "
+        f"batch 2, seq {RG_WINDOW_SEQ} (attention_flash, window "
+        f"{cfg.sliding_window}): {ms:.3f} ms by CUDA events")
+    del layer
+    torch.cuda.empty_cache()
+
+
+def phase_gemma_blend(torch, device):
+    """:func:`blend_check` on the ensembles the Gemma training paths
+    blend: gemma3-1b at each of GEMMA_BLEND_WS workers, and the depth-cut
+    recurrentgemma-9b at RG_W."""
+    from repro_torch.configs.registry import get_arch
+
+    for wn in GEMMA_BLEND_WS:
+        blend_check(torch, device, "gemma-blend", get_arch(GEMMA_ARCH), wn,
+                    " (the [gemma-train] path's ensemble)" if wn == GEMMA_W
+                    else "")
+    blend_check(torch, device, "gemma-blend", rg_cut(), RG_W,
+                f" ({RG_LAYERS} layers; the [rg-train] path's ensemble)")
+
+
+def phase_gemma_serve_check(torch, device):
+    """Reduced gemma3-1b and recurrentgemma-9b through
+    :func:`serve_check_free` at a prompt of 32 (the window of 16 binds in
+    the prefill and in every decode step), the 'R' layers' prefilled conv
+    cache zero, as the reference's, and their state h not; then reduced
+    gemma3-1b at a 2048-token prompt, every 'L' layer of the CPU's and of
+    the GPU's prefill through attention_flash with its window (counted)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import blocks
+
+    for arch, plen in ((GEMMA_ARCH, 32), (RG_ARCH, 32),
+                       (GEMMA_ARCH, SMOLLM_PROMPT)):
+        cfg = get_arch(arch).reduced()
+        with count_calls(blocks, "attention_flash") as flash:
+            cache = serve_check_free(torch, device, arch,
+                                     "gemma-serve-check", plen=plen)
+        want = 2 * flash_windows(cfg) if plen >= blocks.FLASH_MIN_SEQ \
+            else []
+        if windows_of(flash) != want:
+            raise AssertionError(f"gemma-serve-check {arch} prompt {plen}: "
+                                 f"attention_flash windows "
+                                 f"{windows_of(flash)}, want {want}")
+        if want:
+            log(f"[gemma-serve-check] reduced {arch}, prompt {plen}: "
+                f"attention_flash windows {windows_of(flash)} (one call a "
+                f"layer of the CPU's prefill, then of the GPU's)")
+        zero = [cache["scan"][f"pos{j}"] for j, t in
+                enumerate(cfg.pattern_cycle) if t == "R"]
+        if any(bool(c["conv"].any()) or not bool(c["h"].abs().sum() > 0)
+               for c in zero):
+            raise AssertionError(f"gemma-serve-check {arch}: an 'R' layer's "
+                                 f"prefilled conv cache is not zero, or "
+                                 f"its state h is")
+        if zero:
+            log(f"[gemma-serve-check] {arch}: the {len(zero)} 'R' cycle "
+                f"positions' prefilled conv caches are zero (as the "
+                f"reference's), their states h nonzero")
+
+
+def phase_gemma_serve(torch, device):
+    """``launch.serve.main`` (batch 4, prompt 2048, 32 new tokens) on full
+    gemma3-1b — its prefill's 26 attention_flash calls counted: 22 'L'
+    with window 512, 4 'G' without — and full recurrentgemma-9b (38
+    layers, its 12 'L' with window 2048, which masks nothing in the
+    prefill and binds in decode); then :func:`serve_readings` of each."""
+    from repro_torch.configs.registry import get_arch
+
+    for arch in (GEMMA_ARCH, RG_ARCH):
+        serve_main_checked(torch, "gemma-serve", get_arch(arch))
+        serve_readings(torch, device, get_arch(arch), "gemma-serve",
+                       "full size")
 
 
 def main() -> int:
@@ -2752,6 +3132,12 @@ def main() -> int:
     phase_moe_blend(torch, device)
     phase_moe_serve_check(torch, device)
     phase_moe_serve(torch, device)
+    phase_gemma_train_check(torch, device)
+    phase_gemma_train(torch, device)
+    phase_rg_train(torch, device)
+    phase_gemma_blend(torch, device)
+    phase_gemma_serve_check(torch, device)
+    phase_gemma_serve(torch, device)
 
     gb = "src/repro/kernels/gossip_blend/kernel.py"
     km = "src/repro/kernels/kmeans_assign/kernel.py"

@@ -4,10 +4,10 @@ architecture families, through the public serving CLI.
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_decode \
           [--device cpu]
 
-The port serves the dense, MoE and SSM families (smollm-135m,
-granite-moe-1b-a400m, mamba2-370m, reduced); the other archs of the
-reference's list are not ported yet, and the example ends by raising
-NotImplementedError that names each with its ROADMAP.md item.
+The port serves the dense, MoE, SSM and hybrid families (smollm-135m,
+granite-moe-1b-a400m, mamba2-370m, recurrentgemma-9b, reduced); the other
+archs of the reference's list are not ported yet, and the example ends by
+raising NotImplementedError that names each with its ROADMAP.md item.
 """
 import argparse
 
@@ -23,7 +23,8 @@ ARCHS = [
     "whisper-tiny",         # enc-dec audio (stub frontend)
     "paligemma-3b",         # VLM (stub SigLIP prefix)
 ]
-PORTED = ("smollm-135m", "granite-moe-1b-a400m", "mamba2-370m")
+PORTED = ("smollm-135m", "granite-moe-1b-a400m", "mamba2-370m",
+          "recurrentgemma-9b")
 
 
 def main(argv=None):

@@ -1,16 +1,19 @@
 """Per-layer blocks: init, full-sequence apply (train / prefill, optionally
 returning the decode cache) and single-token decode against a cache.
 
-This port carries the 'G' (global attention) layer with the GLU MLP or,
-when the config has experts, the MoE FFN (models/moe.py) — every layer of
-the dense and MoE archs — and the 'S' (mamba-2 SSD) layer, for serving and
-for training (the SSD scan differentiates through kernel B5b on the card).
-A 'G' layer at seq >= FLASH_MIN_SEQ with seq % 512 == 0 takes the chunked
-``attention_flash``, as the reference's ``_attend_full`` does; shorter
-ones the dense form.  The reference's other layer types ('L', 'R', 'E')
-and cross-attention raise NotImplementedError naming the arch family's
-ROADMAP.md queue A item (``FAMILY_ITEMS``).  Sharding hints, sequence
-parallelism and remat change no values on one device and are left out.
+This port carries the 'G' (global attention) and 'L' (sliding-window
+attention) layers with the GLU MLP or, when the config has experts, the
+MoE FFN (models/moe.py); the 'R' (RG-LRU, models/rglru.py) layer; and the
+'S' (mamba-2 SSD) layer, for serving and for training (the SSD scan
+differentiates through kernel B5b on the card).  An attention layer at
+seq >= FLASH_MIN_SEQ with seq % 512 == 0 takes the chunked
+``attention_flash`` ('L' with its window), as the reference's
+``_attend_full`` does; shorter ones the dense form under the causal or
+sliding mask.  The reference's encoder layer ('E'), cross-attention, the
+prefix mask and the other missing features raise NotImplementedError
+naming the arch family's ROADMAP.md queue A item (``FAMILY_ITEMS``).
+Sharding hints, sequence parallelism and remat change no values on one
+device and are left out.
 """
 from __future__ import annotations
 
@@ -19,18 +22,23 @@ import torch
 from ..configs.base import ModelConfig
 from .common import (AttnSpec, _project_qkv, attention_decode,
                      attention_dense, attention_flash, causal_mask,
-                     init_attention, init_kv_cache, make_norm)
+                     init_attention, init_kv_cache, make_norm, sliding_mask)
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, apply_moe_decode, init_moe
+from .rglru import (apply_rglru, apply_rglru_decode, init_rglru,
+                    init_rglru_cache)
 from .ssm import apply_ssd, apply_ssd_decode, init_ssd, init_ssd_cache
 
 # the reference switches to its chunked attention_flash at this length
 FLASH_MIN_SEQ = 2048
 
+# the layer types the port carries; attention ones are 'G' and 'L'
+LAYER_TYPES = ("G", "L", "R", "S")
+
 # the ROADMAP.md queue A item that ports each arch family's missing
-# features: gemma3-1b 9c, recurrentgemma-9b 9d, paligemma-3b 9e,
-# whisper-tiny 9f (the dense, MoE and SSM families lack none)
-FAMILY_ITEMS = {"dense": "9c", "hybrid": "9d", "vlm": "9e", "audio": "9f"}
+# features: paligemma-3b 9e, whisper-tiny 9f (the dense, MoE, SSM and
+# hybrid families lack none)
+FAMILY_ITEMS = {"vlm": "9e", "audio": "9f"}
 
 
 def not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
@@ -52,17 +60,20 @@ def attn_spec(cfg: ModelConfig) -> AttnSpec:
         qk_norm=cfg.qk_norm,
         rope_theta=cfg.rope_theta,
         use_rope=cfg.use_rope,
+        softcap=cfg.attn_softcap,
     )
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for any model feature the port does not carry, for serving
-    and training alike: 'G' (with the GLU MLP or MoE) and 'S' layers
-    are ported.  The message names the arch family's ROADMAP.md item."""
+    and training alike: 'G' and 'L' (with the GLU MLP or MoE), 'R' and
+    'S' layers, scaled embeddings and both softcaps are ported.  The
+    message names the arch family's ROADMAP.md item."""
     missing = []
     layer_types = set(cfg.pattern_cycle)
-    if not layer_types <= {"G", "S"}:
-        missing.append(f"layer types {sorted(layer_types)} (only 'G', 'S')")
+    if not layer_types <= set(LAYER_TYPES):
+        missing.append(f"layer types {sorted(layer_types)} (only "
+                       f"{', '.join(map(repr, LAYER_TYPES))})")
     if cfg.d_ff and not cfg.glu_mlp:
         missing.append("non-GLU MLP")
     if cfg.cross_attention or cfg.encoder_layers or cfg.frontend:
@@ -71,14 +82,12 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("absolute (sinusoidal) positions")
     if cfg.norm_type != "rmsnorm":
         missing.append(f"{cfg.norm_type}")
-    if cfg.attn_softcap or cfg.logit_softcap or cfg.scale_embeddings:
-        missing.append("softcaps / scaled embeddings (gemma family)")
     if missing:
         raise not_ported(cfg, ", ".join(missing))
 
 
 def _layer_type(cfg: ModelConfig, ltype: str) -> None:
-    if ltype not in ("G", "S"):
+    if ltype not in LAYER_TYPES:
         raise not_ported(cfg, f"layer type {ltype!r}")
 
 
@@ -92,8 +101,12 @@ def init_layer(generator, cfg: ModelConfig, ltype: str, *,
     _layer_type(cfg, ltype)
     norm_init, _ = make_norm(cfg.norm_type)
     p = {"ln1": norm_init(cfg.d_model, dtype, device)}
-    if ltype == "G":
+    if ltype in ("G", "L"):
         p["attn"] = init_attention(generator, attn_spec(cfg), dtype, device)
+    elif ltype == "R":
+        p["rglru"] = init_rglru(generator, cfg.d_model,
+                                cfg.lru_width or cfg.d_model, dtype=dtype,
+                                device=device)
     else:
         p["ssm"] = init_ssd(generator, cfg.d_model, expand=cfg.ssm_expand,
                             dtype=dtype, device=device, **_ssm_dims(cfg))
@@ -110,11 +123,15 @@ def init_layer(generator, cfg: ModelConfig, ltype: str, *,
 
 def init_layer_cache(cfg: ModelConfig, ltype: str, batch, max_seq,
                      dtype=torch.bfloat16, device=None):
-    """One model's zero decode cache of one layer (the reference's)."""
+    """One model's zero decode cache of one layer (the reference's: a
+    full-length KV cache for 'L' too, not a ring of its window)."""
     _layer_type(cfg, ltype)
-    if ltype == "G":
+    if ltype in ("G", "L"):
         return init_kv_cache(batch, max_seq, cfg.n_kv_heads,
                              cfg.resolved_head_dim, dtype, device)
+    if ltype == "R":
+        return init_rglru_cache(batch, cfg.lru_width or cfg.d_model,
+                                device=device)
     return init_ssd_cache(batch, cfg.d_model, expand=cfg.ssm_expand,
                           device=device, **_ssm_dims(cfg))
 
@@ -127,22 +144,25 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
     worker axis; positions: (S,).  Returns (x, aux, cache), as the
     reference does: aux (W,) the MoE router's load-balance loss (None
     without MoE, where the reference's is 0); cache None unless
-    ``return_cache``: for 'G' the bf16 KV cache of ``cache_len`` positions
-    (W, B, L, KV, Dh) holding this prompt's k/v; for 'S' a ZERO conv cache
-    and the final SSD state, as the reference returns them (its post-conv
-    tail is computed and dropped)."""
+    ``return_cache``: for 'G' and 'L' the bf16 KV cache of ``cache_len``
+    positions (W, B, L, KV, Dh) holding this prompt's k/v; for 'R' and
+    'S' a ZERO conv cache and the final state, as the reference returns
+    them (its post-conv tail is computed and dropped)."""
     _layer_type(cfg, ltype)
     _, norm = make_norm(cfg.norm_type)
     h = norm(p["ln1"], x)
     cache = None
-    if ltype == "G":
+    if ltype in ("G", "L"):
         seq = x.shape[2]
         spec = attn_spec(cfg)
+        window = cfg.sliding_window if ltype == "L" else None
         if seq >= FLASH_MIN_SEQ and seq % 512 == 0:
-            out = attention_flash(p["attn"], spec, h, positions)
+            out = attention_flash(p["attn"], spec, h, positions,
+                                  window=window)
         else:
-            out = attention_dense(p["attn"], spec, h, positions,
-                                  causal_mask(positions, positions))
+            mask = (causal_mask(positions, positions) if window is None
+                    else sliding_mask(positions, positions, window))
+            out = attention_dense(p["attn"], spec, h, positions, mask)
         if return_cache:
             # recompute K/V once for the cache, as the reference does
             _, k, v = _project_qkv(p["attn"], spec, h, positions)
@@ -153,6 +173,13 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
                      for n, c in cache.items()}
             cache["k"][:, :, :seq] = k.to(torch.bfloat16)
             cache["v"][:, :, :seq] = v.to(torch.bfloat16)
+    elif ltype == "R":
+        out, h_fin = apply_rglru(p["rglru"], h)
+        if return_cache:
+            K = p["rglru"]["conv_w"].shape[1]
+            cache = {"conv": torch.zeros(
+                x.shape[:2] + (K - 1, h_fin.shape[-1]), dtype=x.dtype,
+                device=x.device), "h": h_fin}
     else:
         out, h_fin = apply_ssd(p["ssm"], h, chunk=cfg.ssm_chunk,
                                **_ssm_dims(cfg))
@@ -186,12 +213,17 @@ def apply_layer_decode(cfg: ModelConfig, ltype: str, p, x, pos: int, cache):
     _layer_type(cfg, ltype)
     _, norm = make_norm(cfg.norm_type)
     h = norm(p["ln1"], x)
-    if ltype == "G":
-        x = x + attention_decode(p["attn"], attn_spec(cfg), h, pos, cache)
+    if ltype in ("G", "L"):
+        window = cfg.sliding_window if ltype == "L" else None
+        x = x + attention_decode(p["attn"], attn_spec(cfg), h, pos, cache,
+                                 window=window)
     else:
-        out, new = apply_ssd_decode(p["ssm"], h, cache, **_ssm_dims(cfg))
-        cache["conv"].copy_(new["conv"])
-        cache["ssm"].copy_(new["ssm"])
+        if ltype == "R":
+            out, new = apply_rglru_decode(p["rglru"], h, cache)
+        else:
+            out, new = apply_ssd_decode(p["ssm"], h, cache, **_ssm_dims(cfg))
+        for name, t in new.items():
+            cache[name].copy_(t)
         x = x + out
     if "moe" in p:
         out, _ = apply_moe_decode(p["moe"], norm(p["ln2"], x),

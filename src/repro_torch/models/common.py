@@ -10,7 +10,9 @@ model is W = 1.  Param layouts behind that axis are the reference's (wq
 
 Attention is plain torch here, as it is jnp in the reference: the dense
 form, and the reference's chunked ``attention_flash`` (online softmax over
-query and key blocks), which models/blocks.py takes at seq >= 2048.
+query and key blocks), which models/blocks.py takes at seq >= 2048.  The
+sliding-window mask serves the local ('L') layers of gemma-3 and
+recurrentgemma; ``AttnSpec.softcap`` the gemma family's score softcap.
 """
 from __future__ import annotations
 
@@ -102,6 +104,11 @@ def causal_mask(q_pos, k_pos):
     return q_pos[:, None] >= k_pos[None, :]
 
 
+def sliding_mask(q_pos, k_pos, window):
+    c = causal_mask(q_pos, k_pos)
+    return c & (q_pos[:, None] - k_pos[None, :] < window)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -116,6 +123,7 @@ class AttnSpec:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     use_rope: bool = True
+    softcap: float | None = None
 
 
 def init_attention(generator, spec: AttnSpec, dtype=torch.float32,
@@ -164,6 +172,12 @@ def _gqa_expand(k, n_heads):
     return k.repeat_interleave(n_heads // kv, dim=-2)
 
 
+def _softcap(scores, cap):
+    if cap is None:
+        return scores
+    return cap * torch.tanh(scores / cap)
+
+
 def attention_dense(params, spec: AttnSpec, x, positions, mask):
     """x: (W, B, S, D); mask: (S, S) bool (True == attend).  Materializes
     the scores."""
@@ -172,6 +186,7 @@ def attention_dense(params, spec: AttnSpec, x, positions, mask):
     v = _gqa_expand(v, spec.n_heads)
     scale = spec.head_dim ** -0.5
     scores = torch.einsum("wbqhk,wbshk->wbhqs", q, k) * scale
+    scores = _softcap(scores, spec.softcap)
     scores = torch.where(mask, scores.float(),
                          torch.full((), -1e30, device=scores.device))
     probs = F.softmax(scores, dim=-1).to(x.dtype)
@@ -186,13 +201,13 @@ def attention_flash(params, spec: AttnSpec, x, positions, *,
     """Causal (optionally sliding-window / prefix) chunked attention, the
     reference's ``attention_flash`` (models/common.py:206) in its block
     order: per query block of ``block_q``, key blocks of ``block_k`` with
-    the running (max, sum, acc) online softmax, masked scores at -1e30,
+    the running (max, sum, acc) online softmax, each block's scores
+    softcapped (``spec.softcap``) and then masked at -1e30,
     out = acc / max(sum, 1e-30).  Every key block is computed, as the
     reference computes it (a wholly masked one adds exact zeros once a
     live block has set the running max).  x: (W, B, S, D); positions:
     (S,).  S must be a multiple of both block sizes (capped at S), as the
-    reference asserts.  The reference's softcap is not carried: the
-    port's AttnSpec has none."""
+    reference asserts."""
     W, B, S, _ = x.shape
     bq, bk = min(block_q, S), min(block_k, S)
     if S % bq or S % bk:
@@ -215,6 +230,7 @@ def attention_flash(params, spec: AttnSpec, x, positions, *,
             k_j, v_j = k[:, :, :, k0:k0 + bk], v[:, :, :, k0:k0 + bk]
             kp = positions[k0:k0 + bk]
             s = torch.einsum("wbhqd,wbhkd->wbhqk", q_i, k_j).float()
+            s = _softcap(s, spec.softcap)
             msk = causal_mask(qp, kp)
             if window is not None:
                 msk = msk & (qp[:, None] - kp[None, :] < window)
@@ -235,24 +251,28 @@ def attention_flash(params, spec: AttnSpec, x, positions, *,
     return torch.einsum("wbqhk,whkd->wbqd", out, params["wo"])
 
 
-def attention_decode(params, spec: AttnSpec, x, pos: int, cache):
+def attention_decode(params, spec: AttnSpec, x, pos: int, cache, *,
+                     window: int | None = None):
     """One query position against a KV cache.  x: (W, B, 1, D); pos: host
     int, the current position; cache: k/v (W, B, S_max, KV, Dh) bf16.
 
     Writes this step's k/v into the cache at ``pos`` IN PLACE (the
     reference returns an updated copy) and returns out (W, B, 1, D).  The
-    scores are taken over positions 0..pos only: the reference masks the
-    rest to -1e30, which softmax turns into exact zeros.  The bf16 cache is
-    read as f32 at the products, as JAX promotes ``f32 q · bf16 k``."""
+    scores are taken over positions 0..pos only, and with a ``window``
+    over pos - window + 1..pos only: the reference masks the rest to
+    -1e30, which softmax turns into exact zeros.  The bf16 cache is read
+    as f32 at the products, as JAX promotes ``f32 q · bf16 k``."""
     positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(params, spec, x, positions)
     cache["k"][:, :, pos] = k_new[:, :, 0].to(cache["k"].dtype)
     cache["v"][:, :, pos] = v_new[:, :, 0].to(cache["v"].dtype)
-    k = _gqa_expand(cache["k"][:, :, :pos + 1].float(), spec.n_heads)
-    v = _gqa_expand(cache["v"][:, :, :pos + 1].float(), spec.n_heads)
+    lo = 0 if window is None else max(0, pos - window + 1)
+    k = _gqa_expand(cache["k"][:, :, lo:pos + 1].float(), spec.n_heads)
+    v = _gqa_expand(cache["v"][:, :, lo:pos + 1].float(), spec.n_heads)
     scale = spec.head_dim ** -0.5
     s = torch.einsum("wbqhk,wbshk->wbhqs", q * scale, k)
-    p = F.softmax(s.float(), dim=-1).to(x.dtype)
+    s = _softcap(s.float(), spec.softcap)
+    p = F.softmax(s, dim=-1).to(x.dtype)
     out = torch.einsum("wbhqs,wbshk->wbqhk", p, v)
     return torch.einsum("wbqhk,whkd->wbqd", out, params["wo"])
 

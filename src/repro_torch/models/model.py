@@ -15,6 +15,8 @@ gradients in one buffer.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -76,9 +78,13 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device=None,
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    """tokens (W, B, S) -> (W, B, S, D) from each worker's own table."""
+    """tokens (W, B, S) -> (W, B, S, D) from each worker's own table,
+    times sqrt(d_model) for the gemma family (``cfg.scale_embeddings``)."""
     widx = torch.arange(tokens.shape[0], device=tokens.device)[:, None, None]
-    return params["embed"][widx, tokens]
+    x = params["embed"][widx, tokens]
+    if cfg.scale_embeddings:
+        x = x * math.sqrt(cfg.d_model)
+    return x
 
 
 def forward_w(cfg: ModelConfig, params, batch, *, return_cache=False,
@@ -129,6 +135,8 @@ def unembed(cfg: ModelConfig, params, x):
         logits = torch.einsum("wbsd,wvd->wbsv", x, params["embed"])
     else:
         logits = torch.einsum("wbsd,wdv->wbsv", x, params["lm_head"])
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab:
         # mask pad columns so softmax never sees them
         col = torch.arange(cfg.padded_vocab, device=logits.device)
