@@ -155,7 +155,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      tokens) on full gemma3-1b — 26 attention_flash calls a prefill, 22
      with window 512 and 4 without, counted — and full recurrentgemma-9b
      (38 layers; 12 'L' with window 2048): steady prefill and decode
-     times, peak memory while serving, a profile of one prefill.
+     times, peak memory while serving, a profile of one prefill;
+ 29. [vlm-audio-train-check] reduced paligemma-3b (8 stub patches) and
+     whisper-tiny (2 encoder layers, 32 stub frames), 3 pipelined int8
+     steps from distinct worker starts, each worker's patches or frames
+     drawn with its tokens, GPU (B1r/B1a) against CPU: losses rel 1e-4,
+     ensembles atol 1e-4, n_good equal and not all 0;
+ 30. [audio-train] ``repro_torch.launch.train`` on full whisper-tiny (4 +
+     4 layers, d_model 384; 1500 frames a sample), W=4, batch 2, seq 128,
+     pipelined int8, 8 steps, counters zeroed before and read after —
+     B1r/B1a once a step — then the readings of [24];
+ 31. [vlm-train] the same on paligemma-3b at full width with its depth
+     cut from 18 to 9 layers (at 18 a W=2 step runs out of the card's
+     memory), W=2, 256 patches and 128 text tokens a sample;
+ 32. [vlm-blend] / [audio-blend] B1r/B1a as [moe-blend] on the ensembles
+     [vlm-train] and [audio-train] blend, and on paligemma's full-depth
+     W=2 one (5.0e9 elements, past 2^31);
+ 33. [vlm-audio-serve-check] both reduced archs as [moe-serve-check]
+     (prompts of 32 after the patches or frames; whisper's decode reads
+     its bf16 cross-attention cache), then reduced paligemma at a prompt
+     of 2040 (2048 positions with its prefix): every layer of the CPU's
+     and of the GPU's prefill through attention_flash with prefix_len 8,
+     counted;
+ 34. [audio-serve] ``launch.serve.main`` on full whisper-tiny (batch 4,
+     1500 frames, prompt 416, 32 new tokens: 448 positions, every
+     attention dense), its steady prefill and decode times, peak memory
+     and a profile of one prefill;
+ 35. [vlm-serve] the same on full paligemma-3b (batch 4, 256 patches, 32
+     new tokens) at prompts of 128 (384 positions, the dense prefix mask)
+     and 1792 (2048 positions: its 18 layers' prefill through
+     attention_flash with prefix_len 256, counted).
 Then it prints the kernels' JSON line, the card's name and power limit,
 and last the device JSON line.  Without a GPU, or without the repo's
 sources beside it, it exits non-zero and prints no result.
@@ -465,13 +494,13 @@ DRAW_SEEDS = tuple(range(16))
 
 def pipelined_check(torch, device, arch, tag):
     """3 pipelined int8 steps of reduced ``arch`` on the GPU (kernels) and
-    on the CPU (plain versions) from the same distinct worker starts,
-    batches and gossip draws: losses within rel 1e-4, n_good equal and not
-    all 0, ensembles within atol 1e-4.  The draws come from the first of
-    DRAW_SEEDS whose CPU run admits a message (the last one if none does,
-    and the check then fails).  Returns (GPU losses, CPU losses,
-    n_good, max |ensemble diff|, the GPU run's launch counts, the draw
-    seed)."""
+    on the CPU (plain versions) from the same distinct worker starts, batches
+    (with the frontend's frames or patches) and gossip draws: losses within
+    rel 1e-4, n_good equal and not all 0, ensembles within atol 1e-4.  The
+    draws come from the first of DRAW_SEEDS whose CPU run admits a message
+    (the last one if none does, and the check then fails).  Returns (GPU
+    losses, CPU losses, n_good, max |ensemble diff|, the GPU run's launch
+    counts, the draw seed)."""
     from repro_torch import kernels as K
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import gossip as G
@@ -479,6 +508,7 @@ def pipelined_check(torch, device, arch, tag):
     from repro_torch.core.packing import pack_spec_w, pack_w
     from repro_torch.data.synthetic import lm_batch_iterator
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import next_wbatch
     from repro_torch.models.model import init_model
 
     cfg = get_arch(arch).reduced()
@@ -495,14 +525,16 @@ def pipelined_check(torch, device, arch, tag):
         packed = pack_w(wp, spec).to(dev)
         state = G.init_pipelined_gossip_state(packed, gcfg,
                                               block_rows=BLOCK_ROWS)
-        its = [lm_batch_iterator(w, 2, 32, cfg.vocab) for w in range(W)]
+        its = [lm_batch_iterator(
+            w, 2, 32, cfg.vocab, frontend=cfg.frontend, d_model=cfg.d_model,
+            encoder_seq=cfg.encoder_seq, prefix_len=cfg.prefix_len)
+            for w in range(W)]
         draws = torch.Generator().manual_seed(seed)
         out = []
         K.reset_launch_counts()
         for _ in range(3):
-            tokens = torch.stack([torch.from_numpy(next(it)["tokens"])
-                                  for it in its]).to(dev)
-            packed, state, _, m = step(packed, state, 0, {"tokens": tokens},
+            packed, state, _, m = step(packed, state, 0,
+                                       next_wbatch(its, dev),
                                        *G.draw_gossip_indices(draws, gcfg))
             out.append((float(m["loss"]), float(m["n_good"])))
         return out, packed.cpu(), K.launch_counts()
@@ -2575,40 +2607,43 @@ def phase_moe_serve_check(torch, device):
 
 
 def serve_check_free(torch, device, arch, tag, plen=32, steps=4):
-    """Reduced ``arch`` (batch 2, prompts of ``plen``), the same CPU-made
-    weights and prompts on the GPU and the CPU, the CPU's greedy tokens
-    fed to every run.  Each decode step runs three times on the GPU's
-    side: from the CPU's cache before it (the step alone), and
-    free-running from the GPU's own cache — which the CPU then also steps
-    from.  Held within TOL_SERVE of their largest magnitude, with the
-    greedy tokens equal off near-ties: the prefill's logits, each step's
-    from the CPU's cache, and the free-running GPU's against the CPU's
-    step on that same cache; every cache leaf after each step close.  The
-    free-running logits against the CPU's own free-running ones are
-    reported beside what the cache's difference alone does (the CPU on the
-    GPU's cache against the CPU on its own), and the bf16 cache elements
-    that differ in bf16 steps: the KV cache is bf16, and a GPU-vs-CPU
-    difference of one f32 rounding can round an element to the
+    """Reduced ``arch`` (batch 2, prompts of ``plen`` after the frontend's
+    stub frames or patches), the same CPU-made weights and prompts on the GPU
+    and the CPU, the CPU's greedy tokens fed to every run.  Each decode
+    step runs three times on the GPU's side: from the CPU's cache before it
+    (the step alone), and free-running from the GPU's own cache — which the
+    CPU then also steps from.  Held within TOL_SERVE of their largest
+    magnitude, with the greedy tokens equal off near-ties: the prefill's
+    logits, each step's from the CPU's cache, and the free-running GPU's
+    against the CPU's step on that same cache; every cache leaf after each
+    step close.  The free-running logits against the CPU's own free-running
+    ones are reported beside what the cache's difference alone does (the
+    CPU on the GPU's cache against the CPU on its own), and the bf16 cache
+    elements that differ in bf16 steps: the KV cache is bf16, and a GPU-vs-
+    CPU difference of one f32 rounding can round an element to the
     neighbouring bf16 value, which free-running decode carries into every
     later step.  Returns the GPU's cache after the prefill."""
     from repro_torch import kernels as K
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.tree import tree_map
+    from repro_torch.launch.serve import stub_inputs
     from repro_torch.models import model as M
-    from repro_torch.models.model import init_model
+    from repro_torch.models.model import init_model, vision_prefix
 
     cfg = get_arch(arch).reduced()
     params = init_model(cfg, 0, device="cpu")
     pg = tree_map(lambda x: x.to(device), params)
-    prompt = torch.randint(0, cfg.vocab, (2, plen),
-                           generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, plen), generator=gen),
+             **stub_inputs(cfg, (2,), gen, "cpu")}
+    start = plen + vision_prefix(cfg)       # decode writes after a prefix
     tag = f"{tag} {arch}"
     K.reset_launch_counts()
     with torch.no_grad():
-        last_c, cache_c = M.prefill(cfg, params, {"tokens": prompt},
-                                    cache_len=plen + steps)
-        last_g, free_g = M.prefill(cfg, pg, {"tokens": prompt.to(device)},
-                                   cache_len=plen + steps)
+        last_c, cache_c = M.prefill(cfg, params, batch,
+                                    cache_len=start + steps)
+        last_g, free_g = M.prefill(cfg, pg, tree_map(
+            lambda x: x.to(device), batch), cache_len=start + steps)
         prefilled = tree_map(torch.clone, free_g)
         pairs = [(last_c, last_g.cpu())]
         cache_errs = [check_cache(torch, tag, free_g, cache_c)]
@@ -2620,13 +2655,13 @@ def serve_check_free(torch, device, arch, tag, plen=32, steps=4):
             # cache in place
             cache_g = tree_map(lambda x: x.to(device, copy=True), cache_c)
             cache_x = tree_map(lambda x: x.to("cpu", copy=True), free_g)
-            step_c, cache_c = M.decode_step(cfg, params, tok, plen + i,
+            step_c, cache_c = M.decode_step(cfg, params, tok, start + i,
                                             cache_c)
             step_g, cache_g = M.decode_step(cfg, pg, tok.to(device),
-                                            plen + i, cache_g)
+                                            start + i, cache_g)
             step_f, free_g = M.decode_step(cfg, pg, tok.to(device),
-                                           plen + i, free_g)
-            step_x, cache_x = M.decode_step(cfg, params, tok, plen + i,
+                                           start + i, free_g)
+            step_x, cache_x = M.decode_step(cfg, params, tok, start + i,
                                             cache_x)
             pairs.append((step_c, step_g.cpu()))
             on_own.append((step_x, step_f.cpu()))
@@ -2681,10 +2716,14 @@ def phase_moe_serve(torch, device):
                    f"{get_arch(PHI_ARCH).n_layers} to {PHI_LAYERS}")
 
 
-def flash_windows(cfg):
+def flash_windows(cfg, seq=SERVE_PROMPT):
     """The ``window=`` of attention_flash for each attention layer of a
-    prefill of ``cfg`` at seq >= FLASH_MIN_SEQ: 'L' its window, 'G'
-    none."""
+    prefill of ``cfg`` at ``seq`` positions: 'L' its window, 'G' none;
+    no call below FLASH_MIN_SEQ or off a multiple of 512 (the dense form
+    runs there)."""
+    from repro_torch.models.blocks import FLASH_MIN_SEQ
+    if seq < FLASH_MIN_SEQ or seq % 512:
+        return []
     return [cfg.sliding_window if t == "L" else None
             for t in cfg.layer_types if t in ("G", "L")]
 
@@ -2694,58 +2733,82 @@ def windows_of(calls):
     return [k.get("window") for k in calls]
 
 
-def serve_main_checked(torch, tag, cfg):
-    """``launch.serve.main`` on full ``cfg`` (batch SERVE_BATCH, prompt
-    SERVE_PROMPT, SERVE_NEW new tokens), attention_flash's calls counted:
-    the tokens in the vocabulary, one call an attention layer of the
-    prefill with that layer's window; its peak memory."""
+def check_prefixes(tag, cfg, calls):
+    """A vision arch's attention_flash calls each carry its prefix."""
+    got = [k.get("prefix_len") for k in calls]
+    if cfg.frontend == "vision" and got != [cfg.prefix_len] * len(got):
+        raise AssertionError(f"{tag} {cfg.name}: attention_flash "
+                             f"prefix_len {got}, want {cfg.prefix_len}")
+
+
+def serve_main_checked(torch, tag, cfg, prompt=SERVE_PROMPT):
+    """``launch.serve.main`` on full ``cfg`` (batch SERVE_BATCH, ``prompt``
+    tokens after the frontend's stub frames or patches, SERVE_NEW new
+    tokens), attention_flash's calls counted: the tokens in the
+    vocabulary, one call an attention layer of the prefill with that
+    layer's window (and a vision arch's prefix) where the prefill's
+    length takes it; its peak memory."""
     from repro_torch.launch import serve
     from repro_torch.models import blocks
+    from repro_torch.models.model import vision_prefix
 
     argv = ["--arch", cfg.name, "--batch", str(SERVE_BATCH), "--prompt-len",
-            str(SERVE_PROMPT), "--new-tokens", str(SERVE_NEW)]
+            str(prompt), "--new-tokens", str(SERVE_NEW)]
     log(f"[{tag}] python -m repro_torch.launch.serve {' '.join(argv)}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with count_calls(blocks, "attention_flash") as flash:
         toks = serve.main(argv)
-    want = flash_windows(cfg)
+    seq = prompt + vision_prefix(cfg)
+    want = flash_windows(cfg, seq)
     if tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW) or \
             not bool(((toks >= 0) & (toks < cfg.vocab)).all()) or \
             windows_of(flash) != want:
         raise AssertionError(f"{tag} {cfg.name}: tokens {tuple(toks.shape)},"
                              f" attention_flash windows {windows_of(flash)},"
                              f" want {want}")
+    check_prefixes(tag, cfg, flash)
     n_win = sum(w is not None for w in want)
+    pre = (f", with prefix_len {cfg.prefix_len}"
+           if cfg.frontend == "vision" else "")
+    calls = ("one per attention layer ("
+             + (f"{n_win} 'L' with window {cfg.sliding_window}, "
+                if n_win else "")
+             + f"{len(want) - n_win} 'G' without{pre})" if want else
+             "the dense form below 2048 positions")
     log(f"[{tag}] {cfg.name}: attention_flash {len(flash)} calls in the "
-        f"{SERVE_PROMPT}-token prefill, one per attention layer ("
-        + (f"{n_win} 'L' with window {cfg.sliding_window}, " if n_win else "")
-        + f"{len(want) - n_win} 'G' without); peak memory "
+        f"{seq}-position prefill ({prompt} tokens"
+        + (f" after {seq - prompt} patches" if seq > prompt else "")
+        + f"), {calls}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the weights' "
         f"init included)")
     del toks
     torch.cuda.empty_cache()
 
 
-def serve_readings(torch, device, cfg, tag, note):
-    """``cfg`` (described by ``note``) initialized on the card: finite
-    prefill logits, :func:`serve_timings` (its two prefills' attention_flash
-    calls counted against :func:`flash_windows`), the peak memory while
-    serving and a profile of one prefill."""
+def serve_readings(torch, device, cfg, tag, note, prompt=SERVE_PROMPT):
+    """``cfg`` (described by ``note``) initialized on the card, prompts of
+    ``prompt`` tokens (after the frontend's stub frames or patches):
+    finite prefill logits, :func:`serve_timings` (its two prefills'
+    attention_flash calls counted against :func:`flash_windows`), the
+    peak memory while serving and a profile of one prefill."""
     from repro_torch.core.tree import flatten_sorted
+    from repro_torch.launch.serve import stub_inputs
     from repro_torch.models import blocks
     from repro_torch.models import model as M
 
     torch.cuda.empty_cache()
     params = M.init_model(cfg, 0, device=device)
     n_params = sum(v.numel() for v in flatten_sorted(params)[0])
+    gen = torch.Generator(device=device).manual_seed(1)
     batch = {"tokens": torch.randint(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), device=device,
-        generator=torch.Generator(device=device).manual_seed(1))}
+        0, cfg.vocab, (SERVE_BATCH, prompt), device=device, generator=gen),
+        **stub_inputs(cfg, (SERVE_BATCH,), gen, device)}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cache_len = SERVE_PROMPT + SERVE_NEW
+    seq = prompt + M.vision_prefix(cfg)
+    cache_len = seq + SERVE_NEW
     with torch.no_grad():
         last, _ = M.prefill(cfg, params, batch, cache_len=cache_len)
     if not bool(torch.isfinite(last[:, :cfg.vocab]).all()):
@@ -2753,17 +2816,21 @@ def serve_readings(torch, device, cfg, tag, note):
     del last
     with count_calls(blocks, "attention_flash") as flash:
         toks, t = serve_timings(torch, cfg, params, batch, tag)
-    if windows_of(flash) != 2 * flash_windows(cfg) or \
+    if windows_of(flash) != 2 * flash_windows(cfg, seq) or \
             tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW) or \
             not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
         raise AssertionError(f"{tag} {cfg.name}: tokens {tuple(toks.shape)},"
                              f" attention_flash windows {windows_of(flash)} "
                              f"in 2 prefills")
+    check_prefixes(tag, cfg, flash)
+    stub = {"audio": f", {cfg.encoder_seq} frames",
+            "vision": f", {cfg.prefix_len} patches"}.get(cfg.frontend, "")
     log(f"[{tag}] {cfg.name} ({note}; {n_params:,} params, "
         f"{n_params * 4 / 2**30:.2f} GiB f32): steady prefill "
         f"{t['prefill_ms']:.3f} ms, decode {t['decode_ms_per_token']:.3f} ms "
-        f"per token (batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
-        f"{SERVE_NEW} new tokens); peak memory while serving "
+        f"per token (batch {SERVE_BATCH}{stub}, prompt {prompt}, "
+        f"{SERVE_NEW} new tokens; attention_flash {len(flash) // 2} calls a "
+        f"prefill); peak memory while serving "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     with torch.no_grad():
         profile_step(torch, f"{tag}-profile", lambda: M.prefill(
@@ -2799,16 +2866,22 @@ def phase_gemma_train_check(torch, device):
     layers, lru_width 256) at seq 32, where the window binds: 3 pipelined
     int8 steps from distinct worker starts, GPU (B1r/B1a) against CPU:
     losses rel 1e-4, ensembles atol 1e-4, n_good equal, not all 0."""
+    train_checks(torch, device, "gemma-train-check", (GEMMA_ARCH, RG_ARCH))
+
+
+def train_checks(torch, device, tag, archs):
+    """:func:`pipelined_check` of each reduced arch of ``archs``, B1r and
+    B1a launched once a step."""
     from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
 
-    for arch in (GEMMA_ARCH, RG_ARCH):
+    for arch in archs:
         gpu, cpu, n_good, err, counts, seed = pipelined_check(
-            torch, device, arch, "gemma-train-check")
+            torch, device, arch, tag)
         if counts.get(REDUCE) != 3 or counts.get(APPLY) != 3:
-            raise AssertionError(f"gemma-train-check {arch}: launches "
-                                 f"{counts} in 3 steps")
-        log(f"[gemma-train-check] reduced {arch}, W={W}, batch 2, seq 32, 3 "
-            f"pipelined int8 steps, draw seed {seed}: GPU vs CPU losses "
+            raise AssertionError(f"{tag} {arch}: launches {counts} in 3 "
+                                 f"steps")
+        log(f"[{tag}] reduced {arch}, W={W}, batch 2, seq 32, 3 pipelined "
+            f"int8 steps, draw seed {seed}: GPU vs CPU losses "
             f"{[round(l, 6) for l in gpu]} vs {[round(l, 6) for l in cpu]}"
             f", n_good {n_good}, max |ensemble diff| {err:.3e}; GPU "
             f"launches {counts}")
@@ -2816,17 +2889,20 @@ def phase_gemma_train_check(torch, device):
 
 def train_readings(torch, tag, cfg, state, spec, wn, seq, device):
     """On a trained packed ``state`` of ``wn`` workers (batch 2, ``seq``
-    tokens): the device time of B1r/B1a in one whole pipelined step, then
-    one step's forward+backward by CUDA events and a profile of it.  The
-    allocator's cache is emptied before each: a step needs most of the
-    card, and the cache of the reading before holds it in pieces."""
+    tokens, with the frontend's stub frames or patches): the device time
+    of B1r/B1a in one whole pipelined step, then one step's
+    forward+backward by CUDA events and a profile of it.  The allocator's
+    cache is emptied before each: a step needs most of the card, and the
+    cache of the reading before holds it in pieces."""
     from repro_torch.core.asgd import ASGDConfig
     from repro_torch.launch import train
+    from repro_torch.launch.serve import stub_inputs
     from repro_torch.launch.steps import make_train_step, packed_loss_and_grad
 
-    batch = {"tokens": torch.randint(
-        0, cfg.vocab, (wn, 2, seq), device=device,
-        generator=torch.Generator(device=device).manual_seed(0))}
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (wn, 2, seq),
+                                     device=device, generator=gen),
+             **stub_inputs(cfg, (wn, 2), gen, device)}
     packed = state["params"]
     step = make_train_step(cfg, pack_spec=spec,
                            gcfg=train.gossip_config(wn, wire_format="int8"),
@@ -3032,8 +3108,7 @@ def phase_gemma_serve_check(torch, device):
         with count_calls(blocks, "attention_flash") as flash:
             cache = serve_check_free(torch, device, arch,
                                      "gemma-serve-check", plen=plen)
-        want = 2 * flash_windows(cfg) if plen >= blocks.FLASH_MIN_SEQ \
-            else []
+        want = 2 * flash_windows(cfg, plen)
         if windows_of(flash) != want:
             raise AssertionError(f"gemma-serve-check {arch} prompt {plen}: "
                                  f"attention_flash windows "
@@ -3067,6 +3142,156 @@ def phase_gemma_serve(torch, device):
         serve_main_checked(torch, "gemma-serve", get_arch(arch))
         serve_readings(torch, device, get_arch(arch), "gemma-serve",
                        "full size")
+
+
+# ---------------------------------------------------------------------------
+# the frontend slice: PaliGemma's prefix-LM and whisper's encoder-decoder
+# (LayerNorm, the plain MLP, sinusoidal positions, cross-attention) in
+# plain torch; both trained through B1r/B1a and served
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, AUDIO_ARCH = "paligemma-3b", "whisper-tiny"
+VLM_W, AUDIO_W = 2, 4             # [vlm-train], [audio-train] workers
+VLM_LAYERS = 9                    # [vlm-train]'s depth: at all 18 a W=2
+#                                   step runs out of the 80 GB (PERF.md §4)
+FRONTEND_SEQ = 128                # text tokens a training sample
+AUDIO_PROMPT = 416                # + 32 new tokens: whisper's 448 positions
+VLM_PROMPTS = (128, 1792)         # + 256 patches: 384 (dense) and 2048
+#                                   (attention_flash) positions
+
+
+def vlm_cut():
+    """paligemma-3b at full width, its depth VLM_LAYERS."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    return dataclasses.replace(get_arch(VLM_ARCH), n_layers=VLM_LAYERS)
+
+
+def frontend_train(torch, device, tag, cfg, wn):
+    """``repro_torch.launch.train`` on ``cfg`` (its trainer's get_arch cut
+    by :func:`depth_cut` where ``cfg`` is cut), ``wn`` workers, batch 2,
+    FRONTEND_SEQ text tokens with the frontend's stub inputs, pipelined
+    int8, GEMMA_STEPS steps, counters zeroed before and read after —
+    B1r/B1a once a step — then :func:`train_readings`."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
+    from repro_torch.launch import train
+
+    full = get_arch(cfg.name)
+    with depth_cut(train, cfg.name, cfg.n_layers):
+        out, counts, peak = run_trainer(
+            torch, tag, train_argv(cfg.name, wn, FRONTEND_SEQ, GEMMA_STEPS),
+            GEMMA_STEPS, {REDUCE: GEMMA_STEPS, APPLY: GEMMA_STEPS})
+    state, spec = out["state"], out["spec"]
+    if not bool(torch.isfinite(state["params"]).all()):
+        raise AssertionError(f"{tag}: the ensemble is not finite")
+    depth = ("full size" if cfg.n_layers == full.n_layers else
+             f"full width, n_layers cut from {full.n_layers} to "
+             f"{cfg.n_layers}")
+    stub = {"audio": f"{cfg.encoder_seq} frames",
+            "vision": f"{cfg.prefix_len} patches"}[cfg.frontend]
+    log(f"[{tag}] {cfg.name} ({depth}), W={wn}, batch 2, {FRONTEND_SEQ} "
+        f"text tokens and {stub} a sample, packed ensemble "
+        f"{tuple(state['params'].shape)} = {state['params'].numel():,} f32 "
+        f"elements ({cfg.param_count():,} params a replica, analytic); "
+        + train_summary(out, counts, peak))
+    del out
+    torch.cuda.empty_cache()
+    train_readings(torch, tag, cfg, state, spec, wn, FRONTEND_SEQ, device)
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_frontend_train_check(torch, device):
+    """Reduced paligemma-3b (8 patches) and whisper-tiny (2 encoder
+    layers, 32 frames) through :func:`train_checks`."""
+    train_checks(torch, device, "vlm-audio-train-check",
+                 (VLM_ARCH, AUDIO_ARCH))
+
+
+def phase_audio_train(torch, device):
+    """Full whisper-tiny (4 + 4 layers, 1500 frames a sample) through
+    :func:`frontend_train` at AUDIO_W workers."""
+    from repro_torch.configs.registry import get_arch
+    frontend_train(torch, device, "audio-train", get_arch(AUDIO_ARCH),
+                   AUDIO_W)
+
+
+def phase_vlm_train(torch, device):
+    """paligemma-3b at VLM_LAYERS (256 patches a sample) through
+    :func:`frontend_train` at VLM_W workers."""
+    frontend_train(torch, device, "vlm-train", vlm_cut(), VLM_W)
+
+
+def phase_frontend_blend(torch, device):
+    """:func:`blend_check` on the ensembles the frontend training paths
+    blend: paligemma-3b's at VLM_LAYERS and VLM_W ([vlm-blend]; also the
+    full-depth one where that path runs cut), whisper-tiny's at AUDIO_W
+    ([audio-blend])."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = vlm_cut()
+    blend_check(torch, device, "vlm-blend", cfg, VLM_W,
+                f" ({cfg.n_layers} layers; the [vlm-train] path's ensemble)")
+    if cfg.n_layers != get_arch(VLM_ARCH).n_layers:
+        blend_check(torch, device, "vlm-blend", get_arch(VLM_ARCH), VLM_W,
+                    " (full depth)")
+    blend_check(torch, device, "audio-blend", get_arch(AUDIO_ARCH), AUDIO_W,
+                " (the [audio-train] path's ensemble)")
+
+
+def phase_frontend_serve_check(torch, device):
+    """Reduced paligemma-3b and whisper-tiny through
+    :func:`serve_check_free` at a prompt of 32 (after 8 patches or 32
+    frames); then reduced paligemma at a prompt of 2040, 2048 positions
+    with its prefix, every 'G' layer of the CPU's and of the GPU's
+    prefill through attention_flash with prefix_len 8 (counted)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import blocks
+    from repro_torch.models.model import vision_prefix
+
+    tag = "vlm-audio-serve-check"
+    for arch, plen in ((VLM_ARCH, 32), (AUDIO_ARCH, 32), (VLM_ARCH, 2040)):
+        cfg = get_arch(arch).reduced()
+        with count_calls(blocks, "attention_flash") as flash:
+            serve_check_free(torch, device, arch, tag, plen=plen)
+        want = 2 * flash_windows(cfg, plen + vision_prefix(cfg))
+        if windows_of(flash) != want:
+            raise AssertionError(f"{tag} {arch} prompt {plen}: "
+                                 f"attention_flash windows "
+                                 f"{windows_of(flash)}, want {want}")
+        check_prefixes(tag, cfg, flash)
+        if want:
+            log(f"[{tag}] reduced {arch}, prompt {plen} after "
+                f"{vision_prefix(cfg)} patches: attention_flash prefix_len "
+                f"{[k.get('prefix_len') for k in flash]} (one call a layer "
+                f"of the CPU's prefill, then of the GPU's)")
+
+
+def phase_audio_serve(torch, device):
+    """``launch.serve.main`` on full whisper-tiny (batch 4, 1500 frames,
+    prompt AUDIO_PROMPT, 32 new tokens: every attention dense), then
+    :func:`serve_readings`."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch(AUDIO_ARCH)
+    serve_main_checked(torch, "audio-serve", cfg, AUDIO_PROMPT)
+    serve_readings(torch, device, cfg, "audio-serve", "full size",
+                   AUDIO_PROMPT)
+
+
+def phase_vlm_serve(torch, device):
+    """``launch.serve.main`` on full paligemma-3b (batch 4, 256 patches,
+    32 new tokens) at each prompt of VLM_PROMPTS — at 1792 (2048
+    positions) its 18 'G' layers of the prefill through attention_flash
+    with prefix_len 256, counted — then :func:`serve_readings` at each."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch(VLM_ARCH)
+    for prompt in VLM_PROMPTS:
+        serve_main_checked(torch, "vlm-serve", cfg, prompt)
+        serve_readings(torch, device, cfg, "vlm-serve", "full size", prompt)
 
 
 def main() -> int:
@@ -3138,6 +3363,13 @@ def main() -> int:
     phase_gemma_blend(torch, device)
     phase_gemma_serve_check(torch, device)
     phase_gemma_serve(torch, device)
+    phase_frontend_train_check(torch, device)
+    phase_audio_train(torch, device)
+    phase_vlm_train(torch, device)
+    phase_frontend_blend(torch, device)
+    phase_frontend_serve_check(torch, device)
+    phase_audio_serve(torch, device)
+    phase_vlm_serve(torch, device)
 
     gb = "src/repro/kernels/gossip_blend/kernel.py"
     km = "src/repro/kernels/kmeans_assign/kernel.py"

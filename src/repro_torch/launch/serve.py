@@ -6,10 +6,11 @@
 serves full mamba2-370m on the GPU (every 'S' layer of the prefill through
 the SSD-scan kernel B5; decode is plain torch, as in the reference).  Add
 ``--device cpu`` (and ``--reduced`` for the smoke-scale arch) to run on the
-CPU through the kernels' plain versions.  The port serves the archs whose
-layers it carries ('G' with the dense or the MoE FFN — ``--arch
-granite-moe-1b-a400m`` — and 'S' mamba-2); the others raise with their
-ROADMAP.md item.
+CPU through the kernels' plain versions.  The port serves every arch of
+the reference: whisper-tiny's prompt follows the encoder's output on
+``encoder_seq`` stub frames, paligemma-3b's follows ``prefix_len`` stub
+patch embeddings, both drawn at 0.1 x N(0, 1) from the seed, as the
+reference's server draws them.
 """
 from __future__ import annotations
 
@@ -28,23 +29,41 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def stub_inputs(cfg, lead, generator, device):
+    """The frontend stub's inputs for a batch of shape ``lead`` ((batch,),
+    or (W, batch) for a trainer): {"frames": (*lead, encoder_seq, D)} for
+    an audio arch, {"patches": (*lead, prefix_len, D)} for a vision arch,
+    at 0.1 x N(0, 1) from ``generator``; {} without a frontend."""
+    stub = {"audio": ("frames", cfg.encoder_seq),
+            "vision": ("patches", cfg.prefix_len)}.get(cfg.frontend)
+    if not stub:
+        return {}
+    name, seq = stub
+    return {name: 0.1 * torch.randn(tuple(lead) + (seq, cfg.d_model),
+                                    generator=generator, device=device)}
+
+
 @torch.no_grad()
 def generate(cfg, params, batch, prompt_len, new_tokens):
     """Prefill + greedy decode loop.  Returns (tokens (B, new_tokens),
     {"prefill_ms", "decode_ms_per_token", "steps_per_s"}): host-clock times
-    of work that ends in a device sync."""
+    of work that ends in a device sync.  A vision prefix takes the first
+    ``cfg.prefix_len`` positions of the cache, so decode writes after
+    it."""
     device = batch["tokens"].device
+    prefix = M.vision_prefix(cfg)
     _sync(device)
     t0 = time.perf_counter()
     last, cache = M.prefill(cfg, params, batch,
-                            cache_len=prompt_len + new_tokens)
+                            cache_len=prompt_len + prefix + new_tokens)
     tok = torch.argmax(last, dim=-1)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     out = [tok]
     t0 = time.perf_counter()
     for i in range(new_tokens - 1):
-        logits, cache = M.decode_step(cfg, params, tok, prompt_len + i, cache)
+        logits, cache = M.decode_step(cfg, params, tok,
+                                      prompt_len + prefix + i, cache)
         tok = torch.argmax(logits, dim=-1)
         out.append(tok)
     _sync(device)
@@ -81,6 +100,7 @@ def main(argv=None):
     batch = {"tokens": torch.randint(0, cfg.vocab,
                                      (args.batch, args.prompt_len),
                                      generator=gen, device=device)}
+    batch.update(stub_inputs(cfg, (args.batch,), gen, device))
     toks, t = generate(cfg, params, batch, args.prompt_len, args.new_tokens)
     print(f"prefill {t['prefill_ms']:.3f} ms ({args.batch} x "
           f"{args.prompt_len} tokens), decode {t['decode_ms_per_token']:.3f}"

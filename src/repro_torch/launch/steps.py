@@ -67,7 +67,9 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     leaves, gossip an init_gossip_state.  Otherwise params is the
     (W, R, LANE) f32 ensemble on pack_spec (group-contiguous for 'leaves'
     mode) and gossip an init_packed_gossip_state (init_pipelined_
-    gossip_state when pipelined).  batch: {"tokens": (W, B, S)};
+    gossip_state when pipelined).  batch: {"tokens": (W, B, S)}, with
+    "frames" (W, B, S_enc, D) for an audio arch and "patches" (W, B, P, D)
+    for a vision arch, passed through to the model unchanged;
     shift_idx, block_idx: this round's host-int draws
     (core.gossip.draw_gossip_indices); live: optional (W,) f32 0/1
     per-peer liveness on an elastic gossip state (algo 'asgd' only).

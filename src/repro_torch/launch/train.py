@@ -18,6 +18,8 @@ arch's ssm_chunk, as the reference's chunked scan asserts.  The MoE archs
 (``--arch granite-moe-1b-a400m``, phi3.5-moe-42b-a6.6b) train on every
 engine too: the router's load-balance term is part of every reported loss,
 as in the reference; the expert products are batched cuBLAS matmuls.
+whisper-tiny and paligemma-3b train on their stub frontends' inputs
+(frames and patch embeddings drawn per worker with the tokens).
 
 --save writes the train state after the last step and --restore resumes
 from such a file at its step, running on to --steps (files of the JAX
@@ -73,6 +75,15 @@ def batch_iterators(cfg, workers: int, batch: int, seq: int, seed: int):
         prefix_len=cfg.prefix_len) for w in range(workers)]
 
 
+def next_wbatch(its, device):
+    """One batch of every worker's stream, each key (the tokens, and the
+    frontend's frames or patches) stacked into the W axis on ``device``,
+    as the reference's trainer stacks them."""
+    bs = [next(it) for it in its]
+    return {k: torch.stack([torch.from_numpy(b[k]) for b in bs]).to(device)
+            for k in bs[0]}
+
+
 def run_steps(step_fn, state: dict, its, draws: torch.Generator, gcfg,
               steps: int, device, log_every: int = 10, start: int = 0,
               live=None):
@@ -90,12 +101,10 @@ def run_steps(step_fn, state: dict, its, draws: torch.Generator, gcfg,
     t0 = time.perf_counter()
     for step in range(start, steps):
         t_step = time.perf_counter()
-        tokens = torch.stack([torch.from_numpy(next(it)["tokens"])
-                              for it in its]).to(device)
         shift_idx, block_idx = draw_gossip_indices(draws, gcfg)
         state["params"], state["gossip"], state["opt"], metrics = step_fn(
             state["params"], state["gossip"], state["opt"],
-            {"tokens": tokens}, shift_idx, block_idx, *live_args)
+            next_wbatch(its, device), shift_idx, block_idx, *live_args)
         state["step"] = step + 1
         losses.append(float(metrics["loss"]))      # waits for the step
         step_seconds.append(time.perf_counter() - t_step)

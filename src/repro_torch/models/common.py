@@ -12,7 +12,9 @@ Attention is plain torch here, as it is jnp in the reference: the dense
 form, and the reference's chunked ``attention_flash`` (online softmax over
 query and key blocks), which models/blocks.py takes at seq >= 2048.  The
 sliding-window mask serves the local ('L') layers of gemma-3 and
-recurrentgemma; ``AttnSpec.softcap`` the gemma family's score softcap.
+recurrentgemma; the prefix mask PaliGemma's prefix-LM (bidirectional over
+the image prefix); ``AttnSpec.softcap`` the gemma family's score softcap.
+LayerNorm serves whisper, RMSNorm every other arch.
 """
 from __future__ import annotations
 
@@ -65,13 +67,28 @@ def rmsnorm(params, x, eps=1e-6):
     return (y * (1.0 + scale)).to(x.dtype)
 
 
+def init_layernorm(d, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps=1e-5):
+    """The reference's LayerNorm: f32 inside, the population variance
+    (``jnp.var``; torch.var would apply Bessel's correction)."""
+    x32 = x.float()
+    centred = x32 - x32.mean(dim=-1, keepdim=True)
+    var = centred.square().mean(dim=-1, keepdim=True)
+    y = centred * torch.rsqrt(var + eps)
+    return (y * per_worker(params["scale"], x.ndim)
+            + per_worker(params["bias"], x.ndim)).to(x.dtype)
+
+
 def make_norm(norm_type):
-    """(init, apply) of the config's norm.  Only RMSNorm is ported: the
-    reference's LayerNorm serves whisper-tiny alone (ROADMAP.md queue A)."""
-    if norm_type != "rmsnorm":
-        raise NotImplementedError(
-            f"norm_type {norm_type!r} not ported yet — ROADMAP.md queue A")
-    return init_rmsnorm, rmsnorm
+    """(init, apply) of the config's norm: RMSNorm, else LayerNorm, as the
+    reference chooses."""
+    if norm_type == "rmsnorm":
+        return init_rmsnorm, rmsnorm
+    return init_layernorm, layernorm
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +124,12 @@ def causal_mask(q_pos, k_pos):
 def sliding_mask(q_pos, k_pos, window):
     c = causal_mask(q_pos, k_pos)
     return c & (q_pos[:, None] - k_pos[None, :] < window)
+
+
+def prefix_mask(q_pos, k_pos, prefix_len):
+    """PaliGemma's prefix-LM: bidirectional over the first prefix_len
+    positions, causal after them."""
+    return causal_mask(q_pos, k_pos) | (k_pos[None, :] < prefix_len)
 
 
 # ---------------------------------------------------------------------------

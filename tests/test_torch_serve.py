@@ -2,10 +2,12 @@
 launch/serve.py, examples/serve_decode.py) against the reference's on
 reduced mamba2-370m, smollm-135m, granite-moe-1b-a400m,
 phi3.5-moe-42b-a6.6b, gemma3-1b and recurrentgemma-9b (their 'L' layers'
-window of 16 binds in decode from the prompt of 16 on), on
-reference-initialized
-weights carried over with repro_torch.convert and prompts made from a seed
-with numpy.
+window of 16 binds in decode from the prompt of 16 on), whisper-tiny (its
+prompt after the encoder's output on 32 stub frames, its decode reading
+the bf16 cross-attention cache) and paligemma-3b (its prompt after 8 stub
+patch embeddings, the prefix-LM; decode writes after the prefix), on
+reference-initialized weights carried over with repro_torch.convert and
+prompts, frames and patches made from a seed with numpy.
 
 Tolerance: 1e-4 of the largest magnitude (f32 matmuls and the chunked SSD
 scan summed in another order; the KV cache is bf16 in both packages and is
@@ -27,21 +29,42 @@ from repro_torch.core.tree import flatten_sorted
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models import blocks as TB
 from repro_torch.models import model as TM
 
 ARCHS = ["mamba2-370m", "smollm-135m", "granite-moe-1b-a400m",
-         "phi3.5-moe-42b-a6.6b", "gemma3-1b", "recurrentgemma-9b"]
+         "phi3.5-moe-42b-a6.6b", "gemma3-1b", "recurrentgemma-9b",
+         "whisper-tiny", "paligemma-3b"]
 BATCH, PROMPT, STEPS = 2, 16, 4
 
 
 def setup(arch, seed=0):
+    """(cfg, reference params, port params, the prompt batch as numpy:
+    tokens, and the frontend's frames or patches at 0.1 x N(0, 1))."""
     cfg = jget_arch(arch).reduced()
     jp = JM.init_model(cfg, jax.random.key(seed))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp))
     rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab, (BATCH, PROMPT)).astype(np.int32)
-    return cfg, jp, tp, tokens
+    batch = {"tokens": rng.integers(0, cfg.vocab, (BATCH, PROMPT))
+             .astype(np.int32)}
+    stub = {"audio": ("frames", cfg.encoder_seq),
+            "vision": ("patches", cfg.prefix_len)}.get(cfg.frontend)
+    if stub:
+        batch[stub[0]] = (0.1 * rng.standard_normal(
+            (BATCH, stub[1], cfg.d_model))).astype(np.float32)
+    return cfg, jp, tp, batch
+
+
+def prefix_of(cfg):
+    """The cache positions a vision prefix takes before the prompt."""
+    return cfg.prefix_len if cfg.frontend == "vision" else 0
+
+
+def jb(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def tb(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def assert_near(ours, ref, tol=1e-4):
@@ -68,13 +91,12 @@ def assert_cache_near(ours, ref):
 def test_prefill_and_decode_match_reference(arch):
     """Last logits of the prefill and of 4 decode steps, fed the
     reference's greedy tokens, and every cache leaf after each."""
-    cfg, jp, tp, tokens = setup(arch)
+    cfg, jp, tp, batch = setup(arch)
     tcfg = get_arch(arch).reduced()
-    cache_len = PROMPT + STEPS
-    jlast, jcache = JM.prefill(cfg, jp, {"tokens": jnp.asarray(tokens)},
-                               cache_len=cache_len)
-    last, cache = TM.prefill(tcfg, tp, {"tokens": torch.from_numpy(tokens)},
-                             cache_len=cache_len)
+    start = PROMPT + prefix_of(cfg)
+    cache_len = start + STEPS
+    jlast, jcache = JM.prefill(cfg, jp, jb(batch), cache_len=cache_len)
+    last, cache = TM.prefill(tcfg, tp, tb(batch), cache_len=cache_len)
     assert_near(last, jlast)
     assert_cache_near(cache, jcache)
     if arch in ("mamba2-370m", "recurrentgemma-9b"):
@@ -82,9 +104,9 @@ def test_prefill_and_decode_match_reference(arch):
     jdecode = jax.jit(lambda p, t, pos, c: JM.decode_step(cfg, p, t, pos, c))
     tok = jnp.argmax(jlast, axis=-1).astype(jnp.int32)
     for i in range(STEPS):
-        jlogits, jcache = jdecode(jp, tok, jnp.int32(PROMPT + i), jcache)
+        jlogits, jcache = jdecode(jp, tok, jnp.int32(start + i), jcache)
         logits, cache = TM.decode_step(tcfg, tp, torch.from_numpy(
-            np.array(tok)), PROMPT + i, cache)
+            np.array(tok)), start + i, cache)
         assert_near(logits, jlogits)
         assert_cache_near(cache, jcache)
         tok = jnp.argmax(jlogits, axis=-1).astype(jnp.int32)
@@ -96,23 +118,25 @@ def test_decode_after_prefill_against_teacher_forcing(arch):
     layers (its post-conv tail is dropped), so for mamba2 and
     recurrentgemma the first decode step is not the full forward's next
     logits, while for the dense archs (gemma3 with its windowed 'L'
-    layers too) it is, up to the bf16 KV cache.  For the MoE archs the
-    prefill's capacity drops differ from the full forward's, so it is
-    not either.  The port reproduces this rather than fixing it."""
-    cfg, jp, tp, tokens = setup(arch, seed=1)
+    layers too, whisper with its cross-attention cache, paligemma past
+    its prefix, where the mask is causal) it is, up to the bf16 KV
+    cache.  For the MoE archs the prefill's capacity drops differ from
+    the full forward's, so it is not either.  The port reproduces this
+    rather than fixing it."""
+    cfg, jp, tp, batch = setup(arch, seed=1)
     tcfg = get_arch(arch).reduced()
+    tokens, start = batch["tokens"], PROMPT + prefix_of(cfg)
     nxt = np.full((BATCH, 1), 7, np.int32)
     full = np.concatenate([tokens, nxt], axis=1)
-    _, cache = TM.prefill(tcfg, tp, {"tokens": torch.from_numpy(tokens)},
-                          cache_len=PROMPT + 1)
+    _, cache = TM.prefill(tcfg, tp, tb(batch), cache_len=start + 1)
     logits, _ = TM.decode_step(tcfg, tp, torch.from_numpy(nxt[:, 0]),
-                               PROMPT, cache)
+                               start, cache)
     # teacher forcing needs a whole number of SSD chunks: pad the reference
     # forward to one and read the logits at the new token
     pad = -full.shape[1] % cfg.ssm_chunk if arch == "mamba2-370m" else 0
     padded = np.concatenate([full, np.zeros((BATCH, pad), np.int32)], 1)
-    forced = JM.forward(cfg, jp, {"tokens": jnp.asarray(padded)},
-                        remat=False)[0][:, PROMPT]
+    forced = JM.forward(cfg, jp, jb({**batch, "tokens": padded}),
+                        remat=False)[0][:, start]
     gap = float(np.abs(logits.numpy() - np.asarray(forced)).max())
     scale = float(np.abs(np.asarray(forced)).max())
     if arch in ("mamba2-370m", "recurrentgemma-9b"):
@@ -123,8 +147,7 @@ def test_decode_after_prefill_against_teacher_forcing(arch):
         # 34 (capacity 21), so its KV cache differs: decode after prefill
         # is not teacher forcing in the reference either, and the port
         # takes the reference's decode exactly where the forced one is far
-        _, jcache = JM.prefill(cfg, jp, {"tokens": jnp.asarray(tokens)},
-                               cache_len=PROMPT + 1)
+        _, jcache = JM.prefill(cfg, jp, jb(batch), cache_len=PROMPT + 1)
         jlogits, _ = JM.decode_step(cfg, jp, jnp.asarray(nxt[:, 0]),
                                     jnp.int32(PROMPT), jcache)
         assert_near(logits, jlogits)
@@ -135,12 +158,10 @@ def test_decode_after_prefill_against_teacher_forcing(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_generate_tokens_match_reference(arch):
-    cfg, jp, tp, tokens = setup(arch, seed=2)
-    jtoks, _ = jgenerate(cfg, jp, {"tokens": jnp.asarray(tokens)}, PROMPT,
-                         STEPS + 1)
-    toks, t = tserve.generate(get_arch(arch).reduced(), tp,
-                              {"tokens": torch.from_numpy(tokens)}, PROMPT,
-                              STEPS + 1)
+    cfg, jp, tp, batch = setup(arch, seed=2)
+    jtoks, _ = jgenerate(cfg, jp, jb(batch), PROMPT, STEPS + 1)
+    toks, t = tserve.generate(get_arch(arch).reduced(), tp, tb(batch),
+                              PROMPT, STEPS + 1)
     np.testing.assert_array_equal(toks.numpy(), np.asarray(jtoks))
     assert t["prefill_ms"] > 0 and t["decode_ms_per_token"] > 0
 
@@ -186,14 +207,13 @@ def test_training_an_ssm_arch_raises():
 
 
 def test_serve_decode_example_serves_the_ported_archs(capsys):
+    """The example raised NotImplementedError for whisper-tiny and
+    paligemma-3b before their families were ported; it now serves all six
+    of its archs and returns."""
     from repro_torch.examples import serve_decode
-    with pytest.raises(NotImplementedError, match="item 9") as err:
-        serve_decode.main(["--device", "cpu"])
+    serve_decode.main(["--device", "cpu"])
     out = capsys.readouterr().out
-    assert set(serve_decode.PORTED) <= set(ARCHS)
-    for arch in serve_decode.PORTED:
-        assert f"arch={arch}-smoke" in out
+    assert len(serve_decode.ARCHS) == 6
+    assert set(serve_decode.ARCHS) <= set(ARCHS)
     for arch in serve_decode.ARCHS:
-        if arch not in ARCHS:
-            item = TB.FAMILY_ITEMS[get_arch(arch).arch_type]
-            assert f"{arch} (item {item})" in str(err.value)
+        assert f"arch={arch}-smoke batch=2 decoded 8 tokens/seq" in out

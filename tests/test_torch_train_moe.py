@@ -119,17 +119,22 @@ def test_forward_loss_and_gradients_match_reference(arch):
 
 
 def run_both(jstep, jstate, tstep, tstate, jcfg, vocab, check_state,
-             steps=STEPS):
+             steps=STEPS, stub=None):
     """``steps`` rounds of both steps on the same batches and draws;
-    returns the n_good of each round."""
+    returns the n_good of each round.  ``stub``: lm_batch_iterator's
+    frontend keywords, whose frames or patches join each worker's batch."""
     key = jax.random.key(0)
-    its = [lm_batch_iterator(w, BATCH, SEQ, vocab) for w in range(W)]
+    its = [lm_batch_iterator(w, BATCH, SEQ, vocab, **(stub or {}))
+           for w in range(W)]
     n_good = []
     for step in range(steps):
-        tokens = np.stack([next(it)["tokens"] for it in its])
+        bs = [next(it) for it in its]
+        batch = {n: np.stack([b[n] for b in bs]) for n in bs[0]}
         k = jax.random.fold_in(key, step)
-        *jstate, jm = jstep(*jstate, {"tokens": jnp.asarray(tokens)}, k)
-        *tstate, tm = tstep(*tstate, {"tokens": torch.from_numpy(tokens)},
+        *jstate, jm = jstep(*jstate, {n: jnp.asarray(v)
+                                      for n, v in batch.items()}, k)
+        *tstate, tm = tstep(*tstate, {n: torch.from_numpy(v)
+                                      for n, v in batch.items()},
                             *jax_draws(k, jcfg))
         ref = float(jm["loss"])
         assert abs(float(tm["loss"]) - ref) <= 1e-4 * abs(ref)
