@@ -22,6 +22,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      zeroed just before and read just after — B1r/B1a every round;
   5. [breakdown]/[profile] the pieces of one full-size pipelined step,
      and its exchange and blend on an elastic state (live = ones);
+     [mesh-check]/[mesh] launch/mesh.py's four regions at one rank of an
+     NCCL group, a (1, 1) ("data", "model") mesh, on that ensemble with
+     seeded per-worker offsets (W = 4 = W_local): both wires, delay 0
+     and 1, legacy and elastic (worker 2 down), every shift and
+     partition, each region bitwise the single-device engine on the same
+     input, psum_axes ("model",) bitwise no psum, B1r/B1a launches on
+     the region path counted, the pipelined region's time beside
+     [breakdown]'s exchange + blend; [train-lm]
+     ``repro_torch.examples.train_lm --full --steps 8`` (asgd, silent,
+     sync on full smollm-135m), every loss finite;
      [elastic-check] liveness under churn (worker 2 dead in rounds 1-2)
      on the reduced model, GPU against CPU: 5 pipelined int8 steps (B1)
      and 5 pytree use_fused steps (B2), the dead worker's rows bitwise
@@ -210,6 +220,7 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12               # f32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12             # TF32 on the tensor cores, dense
 MAIN_STEPS = 8
+TRAIN_LM_STEPS = 8                   # [train-lm]
 PYTREE_STEPS = 8
 TOL_REDUCE_RTOL = 1e-5               # sums in another order
 TOL_APPLY_ATOL = 1e-6                # elementwise; the same op order
@@ -996,6 +1007,206 @@ def phase_breakdown(torch, device):
     batch = {"tokens": tokens}
     profile_step(torch, "profile", lambda: step(packed, state, 0, batch, 0,
                                                 1))
+    return {"packed": packed, "pgrads": pgrads, "spec": spec, "acfg": acfg,
+            "exchange_ms": t_ex, "blend_ms": t_bl}
+
+
+def mesh_states(torch, G, packed, spec, gcfg, live, si, bi):
+    """(packed engine's state, pipelined engine's state) with every FIFO
+    slot holding a real payload (partition ``bi`` at shift ``si``) and the
+    staleness guard open; on an elastic run each slot's recorded validity
+    is that payload's under ``live``."""
+    ranges = G.packed_row_ranges(spec, gcfg)
+    sent = G.exchange_packed(packed, ranges, si, bi, gcfg,
+                             block_rows=spec.block_rows)
+    sent, scales = sent if isinstance(sent, tuple) else (sent, None)
+    sent_live = None if live is None else G.roll_live(live, si, gcfg)
+    out = []
+    for pipelined in (False, True):
+        d = G.fifo_depth(gcfg, pipelined=pipelined)
+        out.append(G.PackedGossipState(
+            buf=(sent,) * d, buf_idx=(bi,) * d, step=d,
+            buf_scales=None if scales is None else (scales,) * d,
+            buf_live=None if live is None else (sent_live,) * d))
+    return out
+
+
+def same(torch, tag, got, want):
+    """Bitwise equality of two output tuples (None entries skipped)."""
+    want = [w for w in want if w is not None]
+    if len(got) != len(want) or not all(
+            torch.equal(a, b) for a, b in zip(got, want)):
+        diffs = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(got, want)]
+        raise AssertionError(f"{tag}: region != single-device engine "
+                             f"(max |diff| per output {diffs})")
+
+
+def phase_mesh(torch, device, bd):
+    """[mesh-check]/[mesh]: launch/mesh.py's four regions at one rank of an
+    NCCL process group on the card, a (1, 1) ("data", "model") mesh, on
+    [breakdown]'s full smollm-135m ensemble (W = 4 = W_local) with seeded
+    per-worker offsets, the trainer's GossipConfig: both wires, delay 0
+    and 1, legacy and elastic (worker CHURN_DEAD down), every shift and
+    partition (each shift the roll's r != 0 local path), each region
+    bitwise the single-device engine on the same input; psum_axes
+    ("model",) bitwise no psum (an NCCL all_gather of one rank); B1r/B1a
+    launches on the region path; the pipelined region's time."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.core import gossip as G
+    from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch.train import gossip_config
+
+    spec, acfg, pgrads = bd["spec"], bd["acfg"], bd["pgrads"]
+    packed = bd["packed"] + START_NOISE * torch.randn(
+        bd["packed"].shape, device=device,
+        generator=torch.Generator(device=device).manual_seed(3))
+    churn = torch.ones(W, device=device)
+    churn[CHURN_DEAD] = 0.0
+    region_counts, opened, pairs = {}, [0, 0], 0
+
+    def counted(region, *args):
+        """A region call, its kernel launches added to region_counts."""
+        before = K.launch_counts()
+        out = region(*args)
+        torch.cuda.synchronize()
+        for k, v in K.launch_counts().items():
+            region_counts[k] = region_counts.get(k, 0) + v - before.get(k, 0)
+        return out if isinstance(out, tuple) else (out,)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        MM.init_ranks(str(pathlib.Path(tmp) / "store"), 0, 1, device)
+        try:
+            mesh = MM.make_host_mesh(1, 1, device=device)
+            log(f"[mesh-check] {dist.get_backend()} group of "
+                f"{dist.get_world_size()} rank, "
+                f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}, W={W}, "
+                f"W_local={MM.local_worker_count(mesh, W)}")
+            for wire in ("none", "int8"):
+                for delay in (0, 1):
+                    for elastic in (False, True):
+                        gcfg = gossip_config(W, delay=delay,
+                                             wire_format=wire)
+                        live = churn if elastic else None
+                        lives = (churn,) if elastic else ()
+                        kw = dict(n_workers=W, elastic=elastic)
+                        rnd = MM.shard_map_gossip_round(mesh, spec, gcfg,
+                                                        acfg, **kw)
+                        pipe = MM.shard_map_pipelined_round(
+                            mesh, spec, gcfg, acfg, **kw)
+                        init = MM.shard_map_initiate_exchange(mesh, spec,
+                                                              gcfg, **kw)
+                        cons = MM.shard_map_consume_blend(mesh, spec, gcfg,
+                                                          acfg, **kw)
+                        for si in range(len(gcfg.shifts)):
+                            for bi in range(gcfg.partial_blocks):
+                                tag = (f"[mesh-check] {wire} delay {delay}"
+                                       f"{' elastic' if elastic else ''} "
+                                       f"shift {gcfg.shifts[si]} part {bi}")
+                                pst, qst = mesh_states(torch, G, packed, spec,
+                                                       gcfg, live, si, bi)
+                                new, st, m = G.asgd_gossip_apply_packed(
+                                    packed, pgrads, pst, si, bi, gcfg, acfg,
+                                    spec, live=live)
+                                head = G._fifo_head(pst)
+                                ext = (head[0],) + ((head[1],) if head[1]
+                                                    is not None else ())
+                                hl = (head[3], churn) if elastic else ()
+                                tails = [x[-1] if x else None for x in (
+                                    st.buf, st.buf_scales, st.buf_live)]
+                                same(torch, tag + " round", counted(
+                                    rnd, packed, pgrads, *ext, head[2],
+                                    pst.step, si, bi, *hl),
+                                    [new, tails[0], tails[1], m["gate"],
+                                     tails[2]])
+                                opened[0] += int(m["gate"].sum())
+                                new, st, m = G.asgd_gossip_apply_pipelined(
+                                    packed, pgrads, qst, si, bi, gcfg, acfg,
+                                    spec, live=live)
+                                head = G._fifo_head(qst)
+                                ext = (head[0],) + ((head[1],) if head[1]
+                                                    is not None else ())
+                                hl = (head[3], churn) if elastic else ()
+                                tails = [x[-1] if x else None for x in (
+                                    st.buf, st.buf_scales, st.buf_live)]
+                                same(torch, tag + " pipelined", counted(
+                                    pipe, packed, pgrads, *ext, head[2],
+                                    qst.step, si, bi, *hl),
+                                    [new, tails[0], tails[1], m["gate"],
+                                     tails[2]])
+                                same(torch, tag + " initiate", counted(
+                                    init, packed, si, bi, *lives), tails)
+                                same(torch, tag + " consume", counted(
+                                    cons, packed, pgrads, *ext, head[2],
+                                    qst.step, *hl), [new, m["gate"]])
+                                opened[1] += int(m["gate"].sum())
+                                pairs += 1
+            # the gate accumulator summed over the one 'model' rank (NCCL
+            # all_gather): bitwise no sum
+            gcfg = gossip_config(W, wire_format="int8")
+            _, qst = mesh_states(torch, G, packed, spec, gcfg, None, 0, 1)
+            head = G._fifo_head(qst)
+            args = (packed, pgrads, head[0], head[1], head[2], qst.step, 0, 1)
+            plain = MM.shard_map_pipelined_round(mesh, spec, gcfg, acfg,
+                                                 n_workers=W)
+            summed = MM.shard_map_pipelined_round(
+                mesh, spec, dataclasses.replace(gcfg,
+                                                gate_psum_axes=("model",)),
+                acfg, n_workers=W)
+            same(torch, "[mesh-check] psum_axes ('model',)",
+                 counted(summed, *args), counted(plain, *args))
+            check_s = time.perf_counter() - t0
+            t_pipe = cuda_ms(lambda: plain(*args), 5)
+        finally:
+            dist.destroy_process_group()
+    for name in (REDUCE, APPLY):
+        want = 3 * pairs + 2
+        if region_counts.get(name, 0) != want:
+            raise AssertionError(f"[mesh-check] {name} launched "
+                                 f"{region_counts.get(name, 0)} times on the "
+                                 f"region path, want {want}: {region_counts}")
+    if not all(0 < n < W * pairs for n in opened):
+        raise AssertionError(f"[mesh-check] gates opened {opened} of "
+                             f"{W * pairs} each: the check would not cover "
+                             "both sides of the gate")
+    log(f"[mesh-check] {pairs} (config, shift, partition) cases x 4 regions "
+        f"bitwise the single-device engine, psum at one rank bitwise no "
+        f"psum, in {check_s:.1f} s; gates opened {opened} of {W * pairs} "
+        f"each; launches on the region path {region_counts}")
+    log(f"[mesh] pipelined region (int8, delay 1, W={W}, full smollm-135m): "
+        f"{t_pipe:.3f} ms by CUDA events; [breakdown] exchange + blend "
+        f"{bd['exchange_ms']:.3f} + {bd['blend_ms']:.3f} = "
+        f"{bd['exchange_ms'] + bd['blend_ms']:.3f} ms")
+    return region_counts
+
+
+def phase_train_lm(torch):
+    """[train-lm] repro_torch.examples.train_lm --full --steps 8 on the
+    card: asgd, silent and sync on full smollm-135m (the pytree engine),
+    every loss finite."""
+    from repro_torch import kernels as K
+    from repro_torch.examples import train_lm
+
+    argv = ["--full", "--steps", str(TRAIN_LM_STEPS)]
+    log(f"[train-lm] python -m repro_torch.examples.train_lm "
+        f"{' '.join(argv)}")
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = train_lm.main(argv)
+    torch.cuda.synchronize()
+    for name, ls in losses.items():
+        if len(ls) != TRAIN_LM_STEPS or not all(map(math.isfinite, ls)):
+            raise AssertionError(f"[train-lm] {name} losses {ls}")
+    log(f"[train-lm] {time.perf_counter() - t0:.1f} s; losses "
+        f"{ {k: [round(x, 4) for x in v] for k, v in losses.items()} }; "
+        f"launches {K.launch_counts()}")
 
 
 def profile_step(torch, tag, run, what="one step", group=None):
@@ -3334,7 +3545,10 @@ def main() -> int:
     phase_small_check(torch, device)
     phase_pytree_check(torch, device)
     counts, main_s = phase_main_path(torch)
-    phase_breakdown(torch, device)
+    bd = phase_breakdown(torch, device)
+    phase_mesh(torch, device, bd)
+    del bd
+    phase_train_lm(torch)
     phase_elastic_check(torch, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         path = str(pathlib.Path(tmp) / "main.msgpack")

@@ -36,7 +36,8 @@ existing ``gate_scale`` operand — no kernel changes.  ``live=None`` on a
 non-elastic state is the legacy computation; ``live`` = ones on an
 elastic state is bitwise the same.  No host value is read from ``live``.
 
-Not ported yet: the multi-device transports (ROADMAP.md queue A item 7).
+The multi-device form of the packed rounds — each rank holding a slice of
+W, the roll a ring of P2P sends — is launch/mesh.py's regions.
 """
 from __future__ import annotations
 
@@ -70,6 +71,10 @@ class GossipConfig:
     gossip_every: gossip every k-th step (1 == every step).
     fused_block_rows: row-block size of the packed layout, and the int8
       quantization tile.
+    gate_psum_axes: mesh dim name(s) to sum the blends' (W, P, 3) gate
+      accumulator over, when the state's non-worker dims are sharded over
+      them too (launch/mesh.py's regions); () == no sum.  The
+      single-device engines hold no mesh and raise if it is set.
     """
 
     shifts: tuple = (1, 2, 4, 8)
@@ -80,6 +85,7 @@ class GossipConfig:
     payload_dtype: Any = None
     gossip_every: int = 1
     fused_block_rows: int = 64
+    gate_psum_axes: tuple = ()
 
 
 def resolved_wire_format(cfg: GossipConfig):
@@ -399,7 +405,8 @@ def _fused_blend(params, grads, ext, cfg: GossipConfig, acfg: ASGDConfig,
     out3, gates = gossip_blend_worker_batched(
         w3, pack_w(grads, spec), pack_w(ext, spec)[:, None], acfg.eps,
         mask2d=mask2, use_parzen=acfg.use_parzen, elastic=acfg.elastic,
-        elastic_alpha=acfg.elastic_alpha, gate_scale=gate_scale)
+        elastic_alpha=acfg.elastic_alpha,
+        psum_axes=cfg.gate_psum_axes or None, gate_scale=gate_scale)
     return unpack_w(out3, spec), gates[:, 0]
 
 
@@ -770,6 +777,7 @@ def _blend_head(packed, pgrads, state, valid, cfg, acfg, spec, lr,
         ext_scales=None if ext_scales is None else ext_scales[:, None],
         use_parzen=acfg.use_parzen, elastic=acfg.elastic,
         elastic_alpha=acfg.elastic_alpha, block_rows=spec.block_rows,
+        psum_axes=cfg.gate_psum_axes or None,
         gate_scale=combine_gate_scale(valid, ext_live, live))
     return new_packed, gates[:, 0]
 

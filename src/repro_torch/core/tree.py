@@ -59,6 +59,10 @@ def tree_map(fn, tree, *rest):
     return unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
 
 
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a, b):
     return tree_map(torch.sub, a, b)
 
@@ -74,6 +78,16 @@ def tree_axpy(alpha, x, y):
 
 def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
+
+
+def tree_where(pred, a, b):
+    """Select state ``a`` where ``pred`` (scalar bool or 0/1) else ``b``."""
+    return tree_map(lambda x, y: torch.where(torch.as_tensor(
+        pred, device=x.device).bool(), x, y), a, b)
+
+
+def tree_cast(a, dtype):
+    return tree_map(lambda x: x.to(dtype), a)
 
 
 def _sum_f32(values):

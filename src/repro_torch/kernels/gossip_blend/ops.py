@@ -57,6 +57,20 @@ def gossip_gates(acc, eps, *, use_parzen: bool = True):
                            use_parzen=use_parzen)
 
 
+def _sum_over_mesh(acc, psum_axes, mesh):
+    """The (W, P, 3) accumulator summed over the ranks of the mesh dims
+    ``psum_axes``, in rank order (launch.mesh.psum_rank_order) — for
+    states whose non-worker dims are sharded too, where each rank reduces
+    only its rows."""
+    if mesh is None:
+        raise ValueError(
+            f"psum_axes={psum_axes!r} names mesh dims, but no mesh was "
+            "given: pass mesh= (the regions of launch/mesh.py pass theirs)")
+    # imported here: launch.mesh imports this module
+    from ...launch.mesh import psum_rank_order
+    return psum_rank_order(acc, mesh, psum_axes)
+
+
 def _scale_gates(gates, gate_scale):
     """Multiply the gates by a validity scalar or per-worker (W,) vector
     (the warm-up staleness guard) BEFORE the gated-mean denominator."""
@@ -72,7 +86,8 @@ def gossip_blend_w_resident(w3d, dw3d, ext4d, row_range, eps, *, lr=None,
                             ext_scales=None, use_parzen: bool = True,
                             elastic: bool = False,
                             elastic_alpha: float = 0.5,
-                            block_rows: int | None = None, gate_scale=None):
+                            block_rows: int | None = None, psum_axes=None,
+                            mesh=None, gate_scale=None):
     """Packed-resident fused ASGD update for W worker replicas.
 
     w3d, dw3d: (W, R, LANE) f32; ext4d: (W, P, R, LANE) f32, or int8 with
@@ -83,7 +98,8 @@ def gossip_blend_w_resident(w3d, dw3d, ext4d, row_range, eps, *, lr=None,
     defaults to eps; the Parzen threshold always uses eps).  gate_scale:
     optional scalar or (W,) validity multiplier on the gates.  block_rows:
     None resolves to the quantization tile under int8 (R //
-    ext_scales.shape[-1]), else :func:`choose_block_rows`.
+    ext_scales.shape[-1]), else :func:`choose_block_rows`.  psum_axes,
+    mesh: as in :func:`gossip_blend_worker_batched`.
 
     Returns (w_next (W, R, LANE), gates (W, P) f32).
     """
@@ -99,6 +115,8 @@ def gossip_blend_w_resident(w3d, dw3d, ext4d, row_range, eps, *, lr=None,
                 torch.zeros((wn, 0), dtype=torch.float32, device=w3d.device))
     acc = gossip_reduce_w_resident(w3d, dw3d, ext4d, row_range, ext_scales,
                                    block_rows=block_rows)
+    if psum_axes:
+        acc = _sum_over_mesh(acc, psum_axes, mesh)
     gates = _scale_gates(gossip_gates(acc, eps, use_parzen=use_parzen),
                          gate_scale)
     inv_denom = 1.0 / (gates.sum(dim=1) + 1.0)
@@ -148,26 +166,27 @@ def gossip_blend_worker_batched(w3d, dw3d, ext4d, eps, *, mask2d=None,
                                 use_parzen: bool = True,
                                 elastic: bool = False,
                                 elastic_alpha: float = 0.5, psum_axes=None,
-                                gate_scale=None):
+                                mesh=None, gate_scale=None):
     """Fused ASGD update of W worker replicas on pre-packed states.
 
     w3d, dw3d: (W, R, LANE) f32; ext4d: (W, P, R, LANE) f32; mask2d:
     optional (R, LANE) 0/1 partition mask shared by every worker — masked
     positions take the plain SGD step and add nothing to any gate term.
     gate_scale: optional scalar or (W,) validity multiplier on the gates
-    (the staleness guard).  psum_axes (the reference's cross-shard gate
-    reduction) is not ported: it raises.
+    (the staleness guard).  psum_axes: mesh dim name(s) of ``mesh`` (a
+    DeviceMesh, launch/mesh.py) to sum the (W, P, 3) gate accumulator
+    over, in rank order — when the state's non-worker dims are sharded
+    over those dims too, each rank then reduces only its rows; without a
+    mesh it raises ValueError.
 
     Returns (w_next (W, R, LANE), gates (W, P) f32)."""
-    if psum_axes:
-        raise NotImplementedError(
-            "psum_axes (a gate reduction across devices) is not ported to "
-            "the PyTorch package yet — ROADMAP.md queue A, item 7")
     wn, p = w3d.shape[0], ext4d.shape[1]
     if p == 0:
         return (w3d - eps * dw3d,
                 torch.zeros((wn, 0), dtype=torch.float32, device=w3d.device))
     acc = gossip_reduce_w(w3d, dw3d, ext4d, mask2d)
+    if psum_axes:
+        acc = _sum_over_mesh(acc, psum_axes, mesh)
     gates = _scale_gates(gossip_gates(acc, eps, use_parzen=use_parzen),
                          gate_scale)
     inv_denom = 1.0 / (gates.sum(dim=1) + 1.0)

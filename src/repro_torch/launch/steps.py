@@ -11,6 +11,9 @@
                forward/backward, consume_exchange_packed after it (blend
                of the payload launched delay+1 rounds ago)
 
+and the serving steps (:func:`make_prefill_step`, :func:`make_decode_step`)
+over models.model's prefill and decode_step.
+
 ``algo`` 'sync' (the synchronous data-parallel baseline) and 'silent'
 (SimuParallelSGD) replace the gossip round on the pytree and packed
 engines.  The packed engines keep the inner-optimizer state packed
@@ -18,6 +21,8 @@ engines.  The packed engines keep the inner-optimizer state packed
 pytree state leaf for leaf, with zeros in the padding).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -194,3 +199,33 @@ def init_inner_state(params, inner="sgd"):
     if inner == "momentum":
         return momentum_init(params)
     return adam_init(params)
+
+
+def _serve_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The serving steps' config: batch-sharded attention and sequence
+    parallelism are training-path layouts (a worker-local batch over the
+    reference's `model` axis), off when serving."""
+    return dataclasses.replace(cfg, attn_batch_shard=False,
+                               seq_parallel=False)
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Returns step(params, batch) -> (last_logits (B, V), cache): the
+    prompt's full-sequence pass (models.model.prefill), its cache as long
+    as the prompt (and a vision prefix)."""
+    cfg = _serve_cfg(cfg)
+
+    def step(params, batch):
+        return M.prefill(cfg, params, batch)
+    return step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """Returns step(params, token, pos, cache) -> (logits (B, V), cache):
+    one greedy-decode position (models.model.decode_step; the cache is
+    updated in place)."""
+    cfg = _serve_cfg(cfg)
+
+    def step(params, token, pos, cache):
+        return M.decode_step(cfg, params, token, pos, cache)
+    return step

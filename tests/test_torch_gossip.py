@@ -226,6 +226,23 @@ def test_gossip_every_and_silent_match_reference():
         assert ts.step == 4
 
 
+def test_gate_psum_axes_needs_a_mesh():
+    """GossipConfig.gate_psum_axes sums the gate accumulator over mesh
+    dims: the single-device engines hold no mesh, so they raise (the
+    reference's psum is unbound outside shard_map), and () is no sum."""
+    cfg = tg.GossipConfig(shifts=(1, 2), partial_blocks=4,
+                          gate_psum_axes=("model",))
+    acfg = tasgd.ASGDConfig(eps=0.05)
+    *_, tpk, tpdw, tspec = packed_pair(cfg, seed=1)
+    for fn in (tg.asgd_gossip_apply_packed, tg.asgd_gossip_apply_pipelined):
+        init = (tg.init_pipelined_gossip_state
+                if fn is tg.asgd_gossip_apply_pipelined
+                else tg.init_packed_gossip_state)
+        with pytest.raises(ValueError, match="no mesh was given"):
+            fn(tpk, tpdw, init(tpk, cfg), 0, 1, cfg, acfg, tspec)
+    assert tg.GossipConfig().gate_psum_axes == ()
+
+
 def small_trees(seed, n_ext):
     rng = np.random.default_rng(seed)
 

@@ -228,9 +228,12 @@ def test_cpu_wrappers_launch_nothing_and_check_operands():
                                      mask2d=t(mask))
     tops.gossip_blend_packed(t(w[0]), t(dw[0]), t(ext[0]), EPS)
     assert K.launch_counts() == {}
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="no mesh was given"):
         tops.gossip_blend_worker_batched(t(w), t(dw), t(ext), EPS,
                                          psum_axes=("data",))
+    with pytest.raises(ValueError, match="no mesh was given"):
+        tops.gossip_blend_w_resident(t(w), t(dw), t(ext), (0, 8), EPS,
+                                     psum_axes="model")
     with pytest.raises(ValueError, match="mask must be"):
         gossip_reduce_w(t(w), t(dw), t(ext), t(mask[:8]))
     with pytest.raises(ValueError, match="float32"):

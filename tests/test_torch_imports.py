@@ -79,3 +79,10 @@ def test_checkpoint_slice_modules_are_checked(module):
 def test_moe_slice_modules_are_checked(module):
     """The MoE slice's modules are among the files checked above."""
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["launch/mesh.py", "examples/train_lm.py",
+                                    "launch/steps.py", "core/tree.py"])
+def test_mesh_slice_modules_are_checked(module):
+    """The mesh slice's modules are among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES

@@ -14,6 +14,8 @@ scan summed in another order; the KV cache is bf16 in both packages and is
 compared within one bf16 step of its magnitude).  Cache leaves are compared
 leaf by leaf, the zero conv caches of the 'S' and 'R' layers exactly.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,13 +24,16 @@ import torch
 
 from repro.configs.registry import get_arch as jget_arch
 from repro.launch.serve import generate as jgenerate
+from repro.launch.steps import make_decode_step as jmake_decode_step
+from repro.launch.steps import make_prefill_step as jmake_prefill_step
 from repro.models import model as JM
 from repro_torch.configs.registry import get_arch
 from repro_torch.convert import params_from_numpy
-from repro_torch.core.tree import flatten_sorted
+from repro_torch.core.tree import flatten_sorted, unflatten
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
+                                      make_train_step)
 from repro_torch.models import model as TM
 
 ARCHS = ["mamba2-370m", "smollm-135m", "granite-moe-1b-a400m",
@@ -154,6 +159,47 @@ def test_decode_after_prefill_against_teacher_forcing(arch):
         assert gap > 0.1 * scale
     else:   # equal up to the bf16 rounding of the KV cache
         assert gap <= 1e-2 * scale
+
+
+def assert_logits_near(ours, ref, tol=1e-5):
+    ours, ref = ours.numpy(), np.asarray(ref)
+    assert ours.shape == ref.shape
+    err, scale = np.abs(ours - ref).max(), np.abs(ref).max()
+    assert err <= tol * scale, (err, scale)
+
+
+def test_serving_steps_match_reference():
+    """launch/steps.py's make_prefill_step and make_decode_step on reduced
+    smollm-135m: the prefill's last logits, then 4 decode steps fed the
+    reference's greedy tokens, each from the reference's cache (the KV
+    cache is bf16: caches computed apart can differ by one bf16 step,
+    which moves a logit by ~2e-5 of the largest), each within 1e-5 of the
+    reference's largest logit.  The makers turn off the training-path
+    layouts (attn_batch_shard, seq_parallel) as the reference's do."""
+    cfg, jp, tp, batch = setup("smollm-135m", seed=3)
+    tcfg = get_arch("smollm-135m").reduced()
+    jlast, _ = jmake_prefill_step(cfg)(jp, jb(batch))
+    last, cache = make_prefill_step(tcfg)(tp, tb(batch))
+    assert_logits_near(last, jlast)
+    assert TM.cache_max_seq(cache) == PROMPT
+    _, jcache = JM.prefill(cfg, jp, jb(batch), cache_len=PROMPT + STEPS)
+    treedef = flatten_sorted(TM.init_cache(tcfg, BATCH, PROMPT + STEPS))[1]
+    jdecode, decode = jmake_decode_step(cfg), make_decode_step(tcfg)
+    tok = jnp.argmax(jlast, axis=-1).astype(jnp.int32)
+    for i in range(STEPS):
+        cache = unflatten(treedef, [
+            torch.from_numpy(np.asarray(x, np.float32)).to(
+                getattr(torch, str(x.dtype)))
+            for x in jax.tree.leaves(jcache)])
+        jlogits, jcache = jdecode(jp, tok, jnp.int32(PROMPT + i), jcache)
+        logits, _ = decode(tp, torch.from_numpy(np.array(tok)), PROMPT + i,
+                           cache)
+        assert_logits_near(logits, jlogits)
+        tok = jnp.argmax(jlogits, axis=-1).astype(jnp.int32)
+    sharded = dataclasses.replace(tcfg, attn_batch_shard=True,
+                                  seq_parallel=True)
+    again, _ = make_prefill_step(sharded)(tp, tb(batch))
+    assert torch.equal(again, last)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

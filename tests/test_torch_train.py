@@ -205,3 +205,62 @@ def test_optimizers_and_lr_schedule_match_reference():
         tf = topt.lr_schedule(kind, 0.05, warmup=3, total=10)
         for s in range(12):
             assert tf(s) == pytest.approx(float(jf(jnp.int32(s))), rel=1e-6)
+
+
+def run_example(module, argv, monkeypatch, capsys):
+    """Run an example's main with its trainer replaced by a recorder that
+    returns the same made-up losses for every run; returns (the trainer
+    argv lists, the summary it printed)."""
+    calls = []
+
+    def train_main(a):
+        calls.append(list(a))
+        losses = [3.0, 2.5, 2.25, 2.0]
+        return losses if module.__name__ == "ref_train_lm" else {
+            "losses": losses}
+    monkeypatch.setattr(module, "train_main", train_main)
+    capsys.readouterr()
+    if argv is None:
+        module.main()
+    else:
+        module.main(argv)
+    out = capsys.readouterr().out
+    return calls, out[out.index("=== summary"):]
+
+
+def test_train_lm_example_matches_reference_flags(monkeypatch, capsys):
+    """examples/train_lm.py: the port's example gives the trainer the
+    reference example's flags (plus --device) for asgd, silent and sync,
+    and prints the same summary of the same losses."""
+    import importlib.util
+    import pathlib
+    import sys
+
+    from repro_torch.examples import train_lm
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / \
+        "train_lm.py"
+    spec = importlib.util.spec_from_file_location("ref_train_lm", path)
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    for flags in ([], ["--full", "--steps", "7", "--workers", "3"]):
+        monkeypatch.setattr(sys, "argv", ["train_lm.py"] + flags)
+        ref_calls, ref_out = run_example(ref, None, monkeypatch, capsys)
+        calls, out = run_example(train_lm, flags + ["--device", "cpu"],
+                                 monkeypatch, capsys)
+        assert [c[-1] for c in calls] == ["asgd", "silent", "sync"]
+        for c in calls:
+            i = c.index("--device")
+            assert c[i + 1] == "cpu"
+            del c[i:i + 2]
+        assert calls == ref_calls
+        assert out == ref_out
+
+
+def test_train_lm_example_trains_reduced_on_cpu():
+    from repro_torch.examples import train_lm
+    losses = train_lm.main(["--steps", "2", "--device", "cpu"])
+    assert set(losses) == {"asgd", "silent", "sync"}
+    for ls in losses.values():
+        assert len(ls) == 2 and np.isfinite(ls).all()
+    assert losses["asgd"][-1] < losses["asgd"][0]

@@ -5,17 +5,68 @@ holds a leaf until the cyclic garbage collector runs.  A nested function
 that calls itself is such a cycle; it kept leaves of the trainer's trees
 alive (54 MB of tensors in 3 steps of reduced smollm-135m at W = 2, device
 memory at full size).  And the packed trainer drops each ensemble a step
-replaces."""
+replaces.  The tree arithmetic (tree_add, tree_where, tree_cast) equals
+the reference's on the same numpy leaves, exactly (one elementwise op)."""
 import gc
 import weakref
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from repro.core import tree as jtree
 from repro_torch.checkpoint.checkpoint import _unflatten, canonical_leaves
+from repro_torch.core import tree as ttree
 from repro_torch.core.gossip import GossipState
 from repro_torch.core.tree import flatten_sorted, tree_map, unflatten
 from repro_torch.launch import train as ttrain
+
+
+def np_tree(seed):
+    rng = np.random.default_rng(seed)
+    return {"w": rng.standard_normal((3, 5)).astype(np.float32),
+            "b": {"x": rng.standard_normal((7,)).astype(np.float32),
+                  "y": rng.standard_normal((2, 2, 2)).astype(np.float32)}}
+
+
+def assert_trees_equal(ours, ref):
+    leaves, jleaves = flatten_sorted(ours)[0], jax.tree.leaves(ref)
+    assert len(leaves) == len(jleaves)
+    for a, b in zip(leaves, jleaves):
+        assert str(a.dtype).removeprefix("torch.") == str(b.dtype)
+        np.testing.assert_array_equal(a.float().numpy(),
+                                      np.asarray(b, np.float32))
+
+
+def test_tree_add_matches_reference():
+    a, b = np_tree(0), np_tree(1)
+    assert_trees_equal(
+        ttree.tree_add(tree_map(torch.from_numpy, a),
+                       tree_map(torch.from_numpy, b)),
+        jtree.tree_add(jax.tree.map(jnp.asarray, a),
+                       jax.tree.map(jnp.asarray, b)))
+
+
+@pytest.mark.parametrize("pred", [True, False, 0.0, 1.0])
+def test_tree_where_matches_reference(pred):
+    a, b = np_tree(2), np_tree(3)
+    jpred = jnp.asarray(pred)
+    assert_trees_equal(
+        ttree.tree_where(torch.tensor(pred), tree_map(torch.from_numpy, a),
+                         tree_map(torch.from_numpy, b)),
+        jtree.tree_where(jpred, jax.tree.map(jnp.asarray, a),
+                         jax.tree.map(jnp.asarray, b)))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int32"])
+def test_tree_cast_matches_reference(dtype):
+    a = jax.tree.map(lambda x: 3.0 * x, np_tree(4))
+    assert_trees_equal(
+        ttree.tree_cast(tree_map(torch.from_numpy, a),
+                        getattr(torch, dtype)),
+        jtree.tree_cast(jax.tree.map(jnp.asarray, a), getattr(jnp, dtype)))
 
 
 @pytest.fixture
