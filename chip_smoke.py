@@ -194,7 +194,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  35. [vlm-serve] the same on full paligemma-3b (batch 4, 256 patches, 32
      new tokens) at prompts of 128 (384 positions, the dense prefix mask)
      and 1792 (2048 positions: its 18 layers' prefill through
-     attention_flash with prefix_len 256, counted).
+     attention_flash with prefix_len 256, counted);
+ 36. [dryrun] ``repro_torch.launch.dryrun.run_pair`` on named pairs of the
+     production (16, 16) mesh (a fake process group of 256 ranks, one
+     process): smollm-135m x train_4k on the pytree, packed and pipelined
+     engines, mamba2-370m x prefill_32k (B5 modeled) and x train_4k
+     pipelined (B5 and B5b modeled), mamba2-370m x decode_32k; each
+     record's dominant term, useful ratio, peak and fits, and trace times;
+     B5's and B5b's workspace sizes as the meta branches model them
+     against the kernels' own (``ssd_workspace_floats``,
+     ``ssd_bwd_workspace_floats``);
+ 37. [dryrun-check] the dry-run's meta trace of the [main] step (full
+     smollm-135m, W=4, batch 2, seq 128, pipelined int8) against that step
+     run once on the card, its state built as the trainer builds it, both
+     under the dry-run's counters: the arguments' shapes, dtypes and bytes
+     equal, the aten FLOPs equal FlopCounterMode on the card exactly, the
+     modeled B1r/B1a calls equal kernels.launch_counts(), and the modeled
+     peak over ``torch.cuda.max_memory_allocated()`` (above what was
+     allocated before the state) printed with the tracker's own reading on
+     the card.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and last the device JSON line.  Without a GPU, or without the repo's
 sources beside it, it exits non-zero and prints no result.
@@ -3505,6 +3523,169 @@ def phase_vlm_serve(torch, device):
         serve_readings(torch, device, cfg, "vlm-serve", "full size", prompt)
 
 
+# ---------------------------------------------------------------------------
+# the dry-run slice: launch/dryrun.py on named pairs, and its meta trace of
+# the main path's step held against that step on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_PAIRS = (("smollm-135m", "train_4k", "pytree"),
+                ("smollm-135m", "train_4k", "packed"),
+                ("smollm-135m", "train_4k", "pipelined"),
+                ("mamba2-370m", "prefill_32k", "pytree"),
+                ("mamba2-370m", "train_4k", "pipelined"),
+                ("mamba2-370m", "decode_32k", "pytree"))
+DRYRUN_FULL_BUDGET_S = 3.0           # full depth where it is predicted to
+#                                      trace within this
+
+
+def phase_dryrun(torch):
+    """[dryrun]: run_pair on DRYRUN_PAIRS; the SSD kernels' workspace
+    sizes as the meta branches model them against the kernels' own."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.launch import dryrun as D
+
+    t0 = time.perf_counter()
+    records = []
+    for arch, shape, engine in DRYRUN_PAIRS:
+        rec = D.run_pair(arch, shape, multi_pod=False, engine=engine,
+                         full_budget_s=DRYRUN_FULL_BUDGET_S)
+        records.append(rec)
+        log(f"[dryrun] {arch} x {shape} ({engine}): compute "
+            f"{rec['compute_s'] * 1e3:.3f} ms, memory "
+            f"{rec['memory_s'] * 1e3:.3f} ms, collective "
+            f"{rec['collective_s'] * 1e3:.3f} ms -> {rec['dominant']}; "
+            f"useful {rec['useful_ratio']:.4f}; aten FLOPs "
+            f"{rec['hlo_flops']:.4e}, bytes {rec['hlo_bytes']:.4e}; peak "
+            f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB"
+            f"{' (extrapolated)' if rec['memory']['extrapolated'] else ''}"
+            f", fits {rec['fits']}; kernels "
+            f"{ {k: v['launches'] for k, v in rec['kernels'].items()} }; "
+            f"trace shallow {rec['trace_shallow_s']} s, full "
+            f"{rec['trace_full_s']} s")
+    for a, s, e in DRYRUN_PAIRS:
+        if s == "train_4k" and e != "pytree":
+            rec = records[DRYRUN_PAIRS.index((a, s, e))]
+            if rec["kernels"].get("gossip_apply_w_resident", {}).get(
+                    "launches") != 1:
+                raise AssertionError(f"[dryrun] {a} {e}: B1a not modeled "
+                                     f"once a step: {rec['kernels']}")
+    for rec in records:       # B5 (and B5b in training) once an 'S' layer
+        n = get_arch(rec["arch"]).n_layers
+        want = {"prefill_32k": {"ssd_scan": n},
+                "train_4k": {"ssd_scan": n, "ssd_scan_bwd": n}}.get(
+                    rec["shape"], {}) if rec["arch"] == "mamba2-370m" else {}
+        for name, launches in want.items():
+            if rec["kernels"].get(name, {}).get("launches") != launches:
+                raise AssertionError(f"[dryrun] mamba2 {rec['shape']}: "
+                                     f"{name} not {launches} a step: "
+                                     f"{rec['kernels']}")
+    # the workspace the meta branches allocate is the kernels' own
+    lib, blib = SK._library(), SK._bwd_library()
+    for dims in (SSD_SHAPE, (16, 4096, 32, 64, 128, 128)):
+        if (SK.workspace_floats(*dims) != lib.ssd_workspace_floats(*dims)
+                or SK.bwd_workspace_floats(*dims)
+                != blib.ssd_bwd_workspace_floats(*dims)):
+            raise AssertionError(f"[dryrun] SSD workspace sizes at {dims}: "
+                                 "modeled != the kernels'")
+    log(f"[dryrun] {len(records)} records in "
+        f"{time.perf_counter() - t0:.1f} s; SSD workspaces as modeled")
+    print("[dryrun] records " + json.dumps(records), flush=True)
+
+
+def phase_dryrun_check(torch, device):
+    """[dryrun-check]: the dry-run's meta trace of the [main] step against
+    that step run once on the card under the same counters."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.asgd import ASGDConfig
+    from repro_torch.core.gossip import (init_pipelined_gossip_state,
+                                         leaf_groups)
+    from repro_torch.core.packing import pack_spec_w, pack_w
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import fake_process_group, make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    cfg = get_arch("smollm-135m")
+    gcfg = train.gossip_config(W, wire_format="int8")
+    shape = ShapeConfig("main", 128, 2 * W, "train")
+    with fake_process_group(1):
+        meta = D.trace_step(cfg, shape, make_host_mesh(1, 1, device="cpu"),
+                            gcfg, engine="pipelined", workers=W)
+    t_meta = time.perf_counter() - t0
+
+    # the [main] step on the card, its state built as train.main builds it
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = M.init_model(cfg, 0, device=device)
+    wparams = tree_map(lambda x: x.expand((W,) + tuple(x.shape)), params)
+    spec = pack_spec_w(wparams, block_rows=gcfg.fused_block_rows,
+                       groups=leaf_groups(wparams, gcfg.partial_blocks),
+                       n_groups=gcfg.partial_blocks)
+    packed = pack_w(wparams, spec)
+    del params, wparams
+    gossip = init_pipelined_gossip_state(packed, gcfg,
+                                         block_rows=spec.block_rows)
+    batch = train.next_wbatch(train.batch_iterators(cfg, W, 2, 128, 0),
+                              device)
+    step = make_train_step(cfg, pack_spec=spec, gcfg=gcfg,
+                           acfg=ASGDConfig(eps=EPS), pipelined=True)
+    args = {"params": packed, "gossip": gossip, "opt_state": 0,
+            "batch": batch, "shift_idx": 0, "block_idx": 0}
+    del packed, gossip, batch
+    real = D.arg_tensors(args)
+    want = meta["arg_shapes"]
+    got = [(tuple(t.shape), t.dtype) for t in real]
+    real_bytes = sum(t.numel() * t.element_size() for t in real)
+    if got != want or real_bytes != meta["arg_bytes"]:
+        raise AssertionError(f"[dryrun-check] arguments: meta {want} "
+                             f"({meta['arg_bytes']} B) != card {got} "
+                             f"({real_bytes} B)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with D.Counters(real) as c:
+        out = step(*args.values())
+        torch.cuda.synchronize()
+    del real
+    counts = K.launch_counts()
+    card_peak = torch.cuda.max_memory_allocated() - base
+    if not math.isfinite(float(out[3]["loss"])):
+        raise AssertionError(f"[dryrun-check] loss {out[3]['loss']}")
+    del out, args
+    modeled = {}
+    for k in meta["kernels"]:
+        modeled[k["name"]] = modeled.get(k["name"], 0) + 1
+    if c.flops != meta["flops"]:
+        raise AssertionError(f"[dryrun-check] aten FLOPs: meta "
+                             f"{meta['flops']} != card {c.flops}")
+    if {n: counts.get(n, 0) for n in (REDUCE, APPLY)} != {
+            n: modeled.get(n, 0) for n in (REDUCE, APPLY)} or \
+            modeled.get(APPLY) != 1:
+        raise AssertionError(f"[dryrun-check] launches: modeled {modeled} "
+                             f"!= card {counts}")
+    ratio = meta["peak"] / card_peak
+    log(f"[dryrun-check] [main] step (smollm-135m W={W}, pipelined int8): "
+        f"aten FLOPs meta {meta['flops']} = card {c.flops}; B1r/B1a "
+        f"modeled {modeled} = launched {counts}; argument bytes "
+        f"{meta['arg_bytes']} = {real_bytes}; aten bytes meta "
+        f"{meta['bytes']}, card {c.bytes}; peak: modeled "
+        f"{meta['peak'] / 2**30:.3f} GiB, tracker on the card "
+        f"{c.peak / 2**30:.3f} GiB, max_memory_allocated above the "
+        f"{base / 2**30:.3f} GiB before {card_peak / 2**30:.3f} GiB, "
+        f"modeled / card {ratio:.4f}"
+        f"{'' if 0.8 <= ratio <= 1.25 else ' (outside 0.8-1.25)'}; meta "
+        f"trace {t_meta:.1f} s, {time.perf_counter() - t0:.1f} s in all")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script — "
@@ -3584,6 +3765,8 @@ def main() -> int:
     phase_frontend_serve_check(torch, device)
     phase_audio_serve(torch, device)
     phase_vlm_serve(torch, device)
+    phase_dryrun(torch)
+    phase_dryrun_check(torch, device)
 
     gb = "src/repro/kernels/gossip_blend/kernel.py"
     km = "src/repro/kernels/kmeans_assign/kernel.py"

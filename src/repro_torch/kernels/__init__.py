@@ -26,10 +26,22 @@ at import: the CPU tests import every module on a machine without nvcc.
 Launch counts: every wrapper calls :func:`count_launch` right after its
 kernel launched, and nowhere else — so a run can show that its main path
 went through the kernels (chip_smoke.py resets and reads them).
+
+Modeled launches (the dry-run, launch/dryrun.py): the wrappers on the
+dry-run's path (B1r/B1a, B2r/B2a, B5, B5b) take ``meta`` tensors too.
+There they launch nothing and run no plain version: they return outputs
+of the kernel's shapes and dtypes and, inside :func:`record_modeled`, note
+the launch with its modeled work — the bytes and operations of the
+kernel's bound (PERF.md §6).  On CPU operands inside
+:func:`record_modeled` the plain version runs hidden from the dry-run's
+counters (:func:`plain_modeled`) and the same work is noted, so a CPU
+step and its meta trace count alike.  These notes are not launches:
+:func:`launch_counts` never sees them.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -67,6 +79,46 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     _launches.clear()
+
+
+_modeled: list = []      # the open records of modeled launches, innermost last
+
+
+@contextlib.contextmanager
+def record_modeled():
+    """Collect, while open, one dict per modeled kernel call: ``name``,
+    ``bytes`` and ``ops`` (the work of its bound) and ``ops_dtype`` (the
+    peak those operations run at: "float32", or "tf32" for the split-TF32
+    products, three per product)."""
+    rec: list = []
+    _modeled.append(rec)
+    try:
+        yield rec
+    finally:
+        _modeled.pop()
+
+
+def modeled_launch(name: str, work) -> None:
+    """Note one call of kernel ``name`` of ``work`` = (bytes, ops,
+    ops_dtype) in the innermost open record, if any."""
+    if _modeled:
+        n_bytes, n_ops, ops_dtype = work
+        _modeled[-1].append({"name": name, "bytes": int(n_bytes),
+                             "ops": int(n_ops), "ops_dtype": ops_dtype})
+
+
+def plain_modeled(name: str, work, plain, *args, **kw):
+    """``plain(*args, **kw)`` — a kernel's plain version on CPU operands.
+    Inside :func:`record_modeled` it runs with the dispatch modes off (the
+    dry-run's counters do not see its ops) and the kernel's work is noted
+    in their place."""
+    if not _modeled:
+        return plain(*args, **kw)
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        out = plain(*args, **kw)
+    modeled_launch(name, work)
+    return out
 
 
 def kernel_sources() -> list[pathlib.Path]:

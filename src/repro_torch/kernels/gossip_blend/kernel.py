@@ -20,7 +20,10 @@ kernel at run time.
 Each wrapper checks device, dtype, shape and contiguity.  For CPU tensors
 it returns its plain-torch version (ref.py); for CUDA tensors it launches
 the kernel on the current stream, raises if the launch failed, and counts
-the launch (kernels.count_launch); any other device raises.
+the launch (kernels.count_launch).  B1r/B1a and B2r/B2a also take meta
+tensors (the dry-run): outputs of the kernel's shapes and dtypes, no plain
+version, the launch and its modeled work noted (kernels.modeled_launch);
+any other device raises.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ import pathlib
 
 import torch
 
-from .. import LANE, count_launch, load_library
+from .. import LANE, count_launch, load_library, modeled_launch, \
+    plain_modeled
 from .ref import (clamp_row_range, gossip_apply_plain,
                   gossip_apply_w_plain, gossip_apply_w_resident_plain,
                   gossip_reduce_plain, gossip_reduce_w_plain,
@@ -137,6 +141,54 @@ def _cuda_ready(*tensors) -> bool:
     return True
 
 
+def _route(*tensors) -> str:
+    """"cuda" (checked as :func:`_cuda_ready` checks), "cpu" or "meta" —
+    the dry-run's shapes-only route; raises for a mix or another
+    device."""
+    devices = {t.device.type for t in tensors if t is not None}
+    if devices == {"meta"}:
+        return "meta"
+    return "cuda" if _cuda_ready(*tensors) else "cpu"
+
+
+def resident_work(name: str, wn: int, p: int, rows: int, row_range,
+                  ext_bytes: int, block_rows: int, scaled: bool):
+    """(bytes, operations, "float32") of B1r (``REDUCE``) or B1a
+    (``APPLY``), their bound's work: the reduce reads w, dw and ext (and
+    the scales) on the range's rows and writes (W, P, 3); the apply reads
+    w, dw everywhere, ext on the range, gates/inv/lr, and writes (W, R,
+    LANE)."""
+    r0, r1 = row_range
+    n_in, n_all = wn * (r1 - r0) * LANE, wn * rows * LANE
+    deq = p if scaled else 0
+    sc_b = wn * p * ((r1 - r0) // block_rows) * 4 if scaled else 0
+    if name == REDUCE:
+        return (n_in * (8 + p * ext_bytes) + sc_b + wn * p * 12,
+                n_in * (2 + 6 * p + deq), "float32")
+    return (n_all * 12 + n_in * p * ext_bytes + sc_b + wn * p * 4 + wn * 4
+            + 4, n_all * 2 + n_in * (4 + 2 * p + deq), "float32")
+
+
+def batched_work(name: str, wn: int, p: int, rows: int, mask2d):
+    """(bytes, operations, "float32") of B2r (``REDUCE_W``) or B2a
+    (``APPLY_W``): the worker-shared mask once; the reduce reads w, dw,
+    ext where the mask is 1, the apply w, dw everywhere and ext where the
+    mask is 1.  A meta mask's ones are not known: all of it counts."""
+    n_mask = rows * LANE
+    if mask2d is None:
+        n_on, mask_b = n_mask, 0
+    else:
+        n_on = (n_mask if mask2d.device.type == "meta"
+                else int(mask2d.count_nonzero()))
+        mask_b = n_mask * 4
+    n_all, n_in = wn * n_mask, wn * n_on
+    if name == REDUCE_W:
+        return (mask_b + n_in * 4 * (2 + p) + wn * p * 12,
+                n_in * (3 + 6 * p), "float32")
+    return (mask_b + n_all * 12 + n_in * 4 * p + wn * p * 4 + wn * 4,
+            n_all * 2 + n_in * (4 + 2 * p), "float32")
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -152,9 +204,18 @@ def gossip_reduce_w_resident(w3d, dw3d, ext4d, row_range, ext_scales=None,
     fixed-order two-launch reduction, no atomics)."""
     wn, p, rows = _check_operands(w3d, dw3d, ext4d, ext_scales, block_rows)
     r0, r1 = clamp_row_range(row_range, rows)
-    if not _cuda_ready(w3d, dw3d, ext4d, ext_scales):
-        return gossip_reduce_w_resident_plain(
-            w3d, dw3d, ext4d, (r0, r1), ext_scales, block_rows=block_rows)
+    route = _route(w3d, dw3d, ext4d, ext_scales)
+    if route != "cuda":
+        work = resident_work(REDUCE, wn, p, rows, (r0, r1),
+                             ext4d.element_size(), block_rows,
+                             ext_scales is not None)
+        if route == "meta":
+            modeled_launch(REDUCE, work)
+            return torch.empty((wn, p, 3), dtype=torch.float32,
+                               device="meta")
+        return plain_modeled(
+            REDUCE, work, gossip_reduce_w_resident_plain, w3d, dw3d, ext4d,
+            (r0, r1), ext_scales, block_rows=block_rows)
     lib = _library(p)
     per = lib.gossip_reduce_rows_per_block()
     nblk = -(-(r1 - r0) // per)
@@ -196,11 +257,18 @@ def gossip_apply_w_resident(w3d, dw3d, ext4d, gates, inv_denom, lr,
     gates = gates.float().contiguous()
     inv_denom = inv_denom.float().contiguous()
     lr = lr.float().reshape(1).contiguous()
-    if not _cuda_ready(w3d, dw3d, ext4d, ext_scales, gates, inv_denom, lr):
-        return gossip_apply_w_resident_plain(
-            w3d, dw3d, ext4d, gates, inv_denom, lr, (r0, r1), ext_scales,
-            elastic=elastic, elastic_alpha=elastic_alpha,
-            block_rows=block_rows)
+    route = _route(w3d, dw3d, ext4d, ext_scales, gates, inv_denom, lr)
+    if route != "cuda":
+        work = resident_work(APPLY, wn, p, rows, (r0, r1),
+                             ext4d.element_size(), block_rows,
+                             ext_scales is not None)
+        if route == "meta":
+            modeled_launch(APPLY, work)
+            return torch.empty_like(w3d)
+        return plain_modeled(
+            APPLY, work, gossip_apply_w_resident_plain, w3d, dw3d, ext4d,
+            gates, inv_denom, lr, (r0, r1), ext_scales, elastic=elastic,
+            elastic_alpha=elastic_alpha, block_rows=block_rows)
     lib = _library(p)
     out = torch.empty_like(w3d)
     with torch.cuda.device(w3d.device):
@@ -296,9 +364,15 @@ def gossip_reduce_w(w3d, dw3d, ext4d, mask2d=None):
     worker.  Returns (W, P, 3) f32 = [<dw, w - ext_p>, ||ext_p||^2,
     ||dw||^2], every term restricted by the mask — reproducible run to run
     (a fixed-order two-launch reduction, no atomics)."""
-    _check_batched(w3d, dw3d, ext4d, mask2d)
-    if not _cuda_ready(w3d, dw3d, ext4d, mask2d):
-        return gossip_reduce_w_plain(w3d, dw3d, ext4d, mask2d)
+    wn, p, rows = _check_batched(w3d, dw3d, ext4d, mask2d)
+    route = _route(w3d, dw3d, ext4d, mask2d)
+    if route == "meta":
+        modeled_launch(REDUCE_W, batched_work(REDUCE_W, wn, p, rows, mask2d))
+        return torch.empty((wn, p, 3), dtype=torch.float32, device="meta")
+    if route == "cpu":
+        return plain_modeled(REDUCE_W,
+                             batched_work(REDUCE_W, wn, p, rows, mask2d),
+                             gossip_reduce_w_plain, w3d, dw3d, ext4d, mask2d)
     return _reduce_batched(w3d, dw3d, ext4d, mask2d, REDUCE_W)
 
 
@@ -309,16 +383,22 @@ def gossip_apply_w(w3d, dw3d, ext4d, gates, inv_denom, mask2d=None, *,
     f32 = 1 / (sum_p gates + 1), eps a static float.  Positions where the
     mask is 0 take ``w - eps*dw``.  Returns the updated (W, R, LANE) f32
     states (a new tensor)."""
-    wn, p, _ = _check_batched(w3d, dw3d, ext4d, mask2d)
+    wn, p, rows = _check_batched(w3d, dw3d, ext4d, mask2d)
     if tuple(gates.shape) != (wn, p) or tuple(inv_denom.shape) != (wn,):
         raise ValueError(f"gates must be ({wn}, {p}) and inv_denom ({wn},), "
                          f"got {tuple(gates.shape)}, {tuple(inv_denom.shape)}")
     gates = gates.float().contiguous()
     inv_denom = inv_denom.float().contiguous()
-    if not _cuda_ready(w3d, dw3d, ext4d, mask2d, gates, inv_denom):
-        return gossip_apply_w_plain(w3d, dw3d, ext4d, gates, inv_denom,
-                                    mask2d, eps=eps, elastic=elastic,
-                                    elastic_alpha=elastic_alpha)
+    route = _route(w3d, dw3d, ext4d, mask2d, gates, inv_denom)
+    if route == "meta":
+        modeled_launch(APPLY_W, batched_work(APPLY_W, wn, p, rows, mask2d))
+        return torch.empty_like(w3d)
+    if route == "cpu":
+        return plain_modeled(APPLY_W,
+                             batched_work(APPLY_W, wn, p, rows, mask2d),
+                             gossip_apply_w_plain, w3d, dw3d, ext4d, gates,
+                             inv_denom, mask2d, eps=eps, elastic=elastic,
+                             elastic_alpha=elastic_alpha)
     return _apply_batched(w3d, dw3d, ext4d, gates, inv_denom, mask2d, eps,
                           elastic, elastic_alpha, APPLY_W)
 

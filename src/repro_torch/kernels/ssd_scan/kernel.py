@@ -15,8 +15,12 @@ forward allocates B5's workspace and launches B5's three stages on the
 current stream (``lib.ssd_launches()`` device launches), and keeps that
 workspace (C.B^T, L, every chunk's h_prev) when autograd will need it; the
 backward launches B5b's four stages on it.  Each raises if a launch
-failed, and each call counts one launch (kernels.count_launch); any other
-device raises.  No path falls back to a plain version on the card.
+failed, and each call counts one launch (kernels.count_launch).  For meta
+tensors (the dry-run) both directions return outputs of the kernels'
+shapes — the forward's workspace too, sized as ssd_scan.cu sizes it — run
+no plain version, and note the call with its modeled work
+(kernels.modeled_launch); any other device raises.  No path falls back to
+a plain version on the card.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import pathlib
 
 import torch
 
-from .. import count_launch, load_library
+from .. import count_launch, load_library, modeled_launch, plain_modeled
 from .ref import ssd_scan_plain_bwd, ssd_scan_plain_saved
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "ssd_scan.cu"
@@ -152,6 +156,58 @@ def _scan_cuda(x, dt, A, B, C, chunk):
     return y, h, work
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def workspace_floats(Bb, S, H, P, N, Q) -> int:
+    """Floats of B5's workspace: C.B^T, L and h_prev of every chunk (the
+    ``sizes`` of ssd_scan.cu, whose ``ssd_workspace_floats`` returns the
+    same)."""
+    qp, bnc = _round_up(Q, 32), Bb * (S // Q)
+    return bnc * qp * qp + bnc * H * qp + bnc * H * N * P
+
+
+def bwd_workspace_floats(Bb, S, H, P, N, Q) -> int:
+    """Floats of B5b's scratch (``work_parts`` of ssd_scan_bwd.cu, with its
+    GH = 8 heads a group and PT = 64 columns a tile)."""
+    qp, nc = _round_up(Q, 32), S // Q
+    bnch, bncg = Bb * nc * H, Bb * nc * (-(-H // 8))
+    return (_round_up(bnch * N * P, 4) + _round_up(bnch * qp, 4)
+            + _round_up(bnch * (-(-P // 64)), 4) + bncg * qp * qp
+            + 2 * _round_up(bncg * Q * N, 4))
+
+
+def scan_work(Bb, S, H, P, N, Q):
+    """(bytes, operations, "tf32") of B5's bound: x, dt, A, B, C read once,
+    y and h written once; the multiply-adds (2 operations each) the
+    function needs — C.B^T's lower triangle once per row (the heads share
+    B and C), per head the triangle times xdt, C.h and the state update —
+    three TF32 products each, as the kernel computes them."""
+    nc = S // Q
+    n_bytes = 4 * (2 * Bb * S * H * P + Bb * S * H + Bb * H + 2 * Bb * S * N
+                   + Bb * H * N * P)
+    n_ops = (Bb * nc * Q * (Q + 1) * N
+             + Bb * H * nc * (Q * (Q + 1) * P + 4 * Q * N * P))
+    return n_bytes, 3 * n_ops, "tf32"
+
+
+def scan_bwd_work(Bb, S, H, P, N, Q):
+    """(bytes, operations, "tf32") of B5b's bound: x, dt, A, B, C, dy and d
+    h_final read once, dx, ddt, dA, dB, dC written once; the products'
+    multiply-adds, none twice (the state walk over chunks 1..nc-1, per (b,
+    c, h) dy_i.xdt_j and its product with dy over the triangle, B.dh_c and
+    dh_c.xdt, h_prev.dy, per (b, c) the triangle's sums over B and C),
+    three TF32 products each."""
+    nc = S // Q
+    n_bytes = 4 * (3 * Bb * S * H * P + 2 * Bb * S * H + 2 * Bb * H
+                   + 4 * Bb * S * N + Bb * H * N * P)
+    macs = (Bb * H * ((nc - 1) * 2 * Q * N * P
+                      + nc * (Q * (Q + 1) * P + 2 * Q * N * P))
+            + Bb * nc * Q * (Q + 1) * N)
+    return n_bytes, 3 * 2 * macs, "tf32"
+
+
 def _workspace_parts(work, Bb, S, H, P, N, chunk):
     """B5's workspace as its parts: (C.B^T, L, h_prev), flat."""
     parts = (ctypes.c_size_t * 3)()
@@ -219,8 +275,17 @@ class _SSDScan(torch.autograd.Function):
     def forward(ctx, x, dt, A, B, C, chunk):
         ctx.set_materialize_grads(False)
         ctx.chunk = chunk
-        if x.device.type == "cpu":
-            y, h, L, h_prev = ssd_scan_plain_saved(x, dt, A, B, C, chunk)
+        dims = (*x.shape, B.shape[-1], chunk)
+        if x.device.type == "meta":
+            Bb, S, H, P, N, _ = dims
+            modeled_launch(SCAN, scan_work(*dims))
+            y = torch.empty((Bb, S, H, P), device="meta")
+            h = torch.empty((Bb, H, N, P), device="meta")
+            saved = (torch.empty(workspace_floats(*dims), device="meta"),)
+        elif x.device.type == "cpu":
+            y, h, L, h_prev = plain_modeled(SCAN, scan_work(*dims),
+                                            ssd_scan_plain_saved, x, dt, A,
+                                            B, C, chunk)
             saved = (L, h_prev)
         else:
             if any(ctx.needs_input_grad):
@@ -236,9 +301,14 @@ class _SSDScan(torch.autograd.Function):
         x, dt, A, B, C, *saved = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-        if x.device.type == "cpu":
-            grads = ssd_scan_plain_bwd(x, dt, A, B, C, *saved, dy, dh,
-                                       ctx.chunk)
+        dims = (*x.shape, B.shape[-1], ctx.chunk)
+        if x.device.type == "meta":
+            modeled_launch(SCAN_BWD, scan_bwd_work(*dims))
+            grads = tuple(torch.empty_like(t) for t in (x, dt, A, B, C))
+        elif x.device.type == "cpu":
+            grads = plain_modeled(SCAN_BWD, scan_bwd_work(*dims),
+                                  ssd_scan_plain_bwd, x, dt, A, B, C, *saved,
+                                  dy, dh, ctx.chunk)
         else:
             grads = _scan_bwd_cuda(x, dt, A, B, C, *saved, dy, dh,
                                    ctx.chunk)
@@ -259,7 +329,7 @@ def ssd_scan_chunked(x, dt, A, B, C, chunk: int):
         raise ValueError(
             f"operands on several devices: {sorted(map(str, devices))}")
     dev = x.device
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd_scan runs on cuda (or its plain version on "
-                         f"cpu), got device {dev}")
+                         f"cpu, its shapes on meta), got device {dev}")
     return _SSDScan.apply(x, dt, A, B, C, chunk)

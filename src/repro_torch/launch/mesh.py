@@ -87,10 +87,35 @@ def _auto_mesh(shape, axes, device=None):
                             mesh_dim_names=tuple(axes))
 
 
+@contextlib.contextmanager
 def mesh_context(mesh):
-    """A no-op context: the regions take their mesh as an argument, so no
-    ambient mesh is needed (the reference sets jax's where it exists)."""
-    return contextlib.nullcontext()
+    """``mesh`` as the ambient mesh of ``models/hints.py constrain`` inside
+    the block (the previous one restored after it).  The regions take
+    their mesh as an argument and need none."""
+    from ..models import hints
+    hints.push_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        hints.pop_mesh()
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int, rank: int = 0):
+    """This process as rank ``rank`` of a "fake" process group of
+    ``world_size`` ranks (``torch.testing``'s FakeStore: collectives
+    return at once and move nothing), for building a production-size
+    ``DeviceMesh`` in one process — the dry-run's.  The group is destroyed
+    on exit, so ``dist.is_initialized()`` is false again."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):

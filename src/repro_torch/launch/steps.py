@@ -19,6 +19,14 @@ over models.model's prefill and decode_step.
 engines.  The packed engines keep the inner-optimizer state packed
 (momentum/Adam are elementwise, so their values match the reference's
 pytree state leaf for leaf, with zeros in the padding).
+
+The input specs (:func:`input_specs`, :func:`step_and_args`) describe a
+step's arguments at a production mesh's GLOBAL shapes without allocating
+anything: each tensor is a :class:`Struct`, a ``meta`` tensor of the
+reference's shape and dtype with its spec (``launch/sharding.py``).  The
+scalars the reference carries as device ints — the round's draws, the
+FIFO's partition indices and step, the sgd optimizer's placeholder, the
+decode position — are host ints here, as the port's steps take them.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import dataclasses
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..core.asgd import ASGDConfig
 from ..core.gossip import (GossipConfig, _silent_round, asgd_gossip_apply,
                            asgd_gossip_apply_packed, consume_exchange_packed,
@@ -35,6 +43,18 @@ from ..core.gossip import (GossipConfig, _silent_round, asgd_gossip_apply,
 from ..core.packing import unpack_w
 from ..core.tree import flatten_sorted, tree_map, unflatten
 from ..models import model as M
+from . import sharding as SH
+from .mesh import data_axes, n_worker_groups
+
+# the reference's struct dtype (its PARAM_DTYPE); the port itself trains
+# and serves in f32, and its dry-run traces with dtype=torch.float32
+PARAM_DTYPE = torch.bfloat16
+
+# train-step engines (input_specs / step_and_args / dryrun --engine):
+#   pytree    — the per-leaf tree of (W, ...) leaves
+#   packed    — the packed-resident (W, R, LANE) ensemble
+#   pipelined — packed-resident + the one-round-deep exchange pipeline
+ENGINES = ("pytree", "packed", "pipelined")
 
 
 def packed_loss_and_grad(cfg: ModelConfig, packed, batch, spec):
@@ -229,3 +249,233 @@ def make_decode_step(cfg: ModelConfig):
     def step(params, token, pos, cache):
         return M.decode_step(cfg, params, token, pos, cache)
     return step
+
+
+# ---------------------------------------------------------------------------
+# input specs: Structs (meta tensors with their specs) — never allocated
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Struct:
+    """A step argument that is never allocated: ``meta`` is a tensor on
+    the meta device of the global shape and dtype, ``spec`` its partition
+    spec on the mesh (a tuple, ``launch/sharding.py``)."""
+
+    meta: torch.Tensor
+    spec: tuple
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.meta.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.meta.dtype
+
+
+def _struct(shape, dtype, spec) -> Struct:
+    return Struct(torch.empty(tuple(shape), dtype=dtype, device="meta"),
+                  tuple(spec))
+
+
+def _with_specs(tree, specs):
+    leaves, treedef = flatten_sorted(tree)
+    return unflatten(treedef, [Struct(x, s) for x, s in
+                               zip(leaves, flatten_sorted(specs)[0])])
+
+
+def metas(tree):
+    """The meta tensors of a tree of Structs."""
+    return tree_map(lambda s: s.meta, tree)
+
+
+def batch_struct(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                 train: bool, dtype=PARAM_DTYPE, workers=None):
+    """The host batch of one step.  train: tokens (W, B_local, S) where
+    W = ``workers`` (default: the worker groups) and B_local =
+    global_batch / W; serve: (B_global, S), batch over the data axes.  A
+    vision arch's text is S minus its patches; frames/patches in
+    ``dtype``."""
+    wa = data_axes(mesh)
+    W = workers or n_worker_groups(mesh)
+    S = shape.seq_len
+    S_text = S - cfg.prefix_len if cfg.frontend == "vision" else S
+
+    def mk(shp, dt):
+        return _struct(shp, dt, SH.batch_pspec(len(shp), worker_axes=wa,
+                                               train=train))
+
+    if train:
+        lead = (W, max(1, shape.global_batch // W))
+    else:
+        lead = (shape.global_batch,)
+    out = {"tokens": mk(lead + (S_text,), torch.int32)}
+    if cfg.frontend == "audio":
+        out["frames"] = mk(lead + (cfg.encoder_seq, cfg.d_model), dtype)
+    if cfg.frontend == "vision":
+        out["patches"] = mk(lead + (cfg.prefix_len, cfg.d_model), dtype)
+    return out
+
+
+def params_struct(cfg: ModelConfig, mesh, *, train: bool,
+                  dtype=PARAM_DTYPE, workers=None):
+    """The params (a leading W axis when train: ``workers``, default the
+    worker groups)."""
+    W = workers or n_worker_groups(mesh)
+    shapes = M.init_model(cfg, device="meta", dtype=dtype)
+    if train:
+        shapes = tree_map(lambda x: x.expand((W,) + tuple(x.shape)),
+                          shapes)
+    return _with_specs(shapes, SH.tree_pspecs(
+        mesh, shapes, worker_axes=data_axes(mesh), train=train))
+
+
+def cache_struct(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                 dtype=PARAM_DTYPE):
+    """One model's decode cache at the shape's batch and length."""
+    cache = M.init_cache(cfg, shape.global_batch, shape.seq_len,
+                         dtype=dtype, device="meta")
+    return _with_specs(cache, SH.cache_pspecs(mesh, cache, cfg,
+                                              worker_axes=data_axes(mesh)))
+
+
+def gossip_struct(cfg: ModelConfig, mesh, gcfg: GossipConfig,
+                  dtype=PARAM_DTYPE, workers=None):
+    """The pytree engine's GossipState: buf laid out like the params."""
+    from ..core.gossip import init_gossip_state
+    p_struct = params_struct(cfg, mesh, train=True, dtype=dtype,
+                             workers=workers)
+    state = init_gossip_state(metas(p_struct), gcfg)
+    specs = tree_map(lambda s: s.spec, p_struct)
+    return dataclasses.replace(state, buf=_with_specs(state.buf, specs))
+
+
+def packed_spec_for(cfg: ModelConfig, mesh, gcfg: GossipConfig,
+                    dtype=PARAM_DTYPE, workers=None):
+    """Group-contiguous WPackSpec of the train params' structure, built
+    from meta tensors (pack_spec_w reads shapes and sizes only)."""
+    from ..core.gossip import leaf_groups
+    from ..core.packing import pack_spec_w
+    p = metas(params_struct(cfg, mesh, train=True, dtype=dtype,
+                            workers=workers))
+    return pack_spec_w(p, block_rows=gcfg.fused_block_rows,
+                       groups=leaf_groups(p, gcfg.partial_blocks),
+                       n_groups=gcfg.partial_blocks)
+
+
+def _worker_split(mesh, ndim: int) -> tuple:
+    return (SH._worker_entry(data_axes(mesh)),) + (None,) * (ndim - 1)
+
+
+def packed_params_struct(cfg: ModelConfig, mesh, gcfg: GossipConfig,
+                         spec=None, dtype=PARAM_DTYPE, workers=None):
+    """The resident (W, rows, LANE) f32 ensemble, its worker axis over the
+    data axes."""
+    from ..kernels import LANE
+    spec = spec or packed_spec_for(cfg, mesh, gcfg, dtype, workers)
+    return _struct((spec.n_workers, spec.rows, LANE), torch.float32,
+                   _worker_split(mesh, 3))
+
+
+def packed_gossip_struct(cfg: ModelConfig, mesh, gcfg: GossipConfig,
+                         spec=None, *, pipelined: bool = False,
+                         dtype=PARAM_DTYPE, workers=None):
+    """The PackedGossipState a packed-resident / pipelined run carries
+    (FIFO depth per core.gossip.fifo_depth): each slot and its int8 scales
+    split over the worker axis like the ensemble (the reference stacks
+    the slots on a leading FIFO axis; the port keeps a tuple)."""
+    from ..core.gossip import (fifo_depth, init_packed_gossip_state,
+                               resolved_wire_format)
+    spec = spec or packed_spec_for(cfg, mesh, gcfg, dtype, workers)
+    p = packed_params_struct(cfg, mesh, gcfg, spec, dtype)
+    block_rows = (spec.block_rows if resolved_wire_format(gcfg) == "int8"
+                  else None)
+    state = init_packed_gossip_state(
+        p.meta, gcfg, block_rows=block_rows,
+        depth=fifo_depth(gcfg, pipelined=pipelined))
+
+    def attach(slots):
+        return None if slots is None else tuple(
+            Struct(x, _worker_split(mesh, x.ndim)) for x in slots)
+    return dataclasses.replace(state, buf=attach(state.buf),
+                               buf_scales=attach(state.buf_scales))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                gcfg: GossipConfig | None = None, engine: str = "pytree",
+                dtype=PARAM_DTYPE, workers=None) -> dict:
+    """Everything a step function needs, at global shapes, as Structs and
+    host ints, keyed by the step's argument names.
+
+    engine: 'pytree' (per-leaf params + GossipState) or 'packed' /
+    'pipelined' (the resident (W, rows, LANE) ensemble +
+    PackedGossipState).  ``workers``: the train shapes' W (default: the
+    mesh's worker groups, the reference's).  A decode step's ``pos`` is
+    the last position of the cache: the port's decode reads positions [0,
+    pos] (the reference reads the whole cache under a mask), so that is
+    its whole cost."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r} (expected {ENGINES})")
+    gcfg = gcfg or GossipConfig()
+    if shape.kind == "train":
+        if engine != "pytree":
+            spec = packed_spec_for(cfg, mesh, gcfg, dtype, workers)
+            params = packed_params_struct(cfg, mesh, gcfg, spec, dtype)
+            gossip = packed_gossip_struct(
+                cfg, mesh, gcfg, spec, pipelined=engine == "pipelined",
+                dtype=dtype)
+        else:
+            params = params_struct(cfg, mesh, train=True, dtype=dtype,
+                                   workers=workers)
+            gossip = gossip_struct(cfg, mesh, gcfg, dtype, workers)
+        return {"params": params, "gossip": gossip, "opt_state": 0,
+                "batch": batch_struct(cfg, shape, mesh, train=True,
+                                      dtype=dtype, workers=workers),
+                "shift_idx": 0, "block_idx": 0}
+    if shape.kind == "prefill":
+        return {"params": params_struct(cfg, mesh, train=False, dtype=dtype),
+                "batch": batch_struct(cfg, shape, mesh, train=False,
+                                      dtype=dtype)}
+    wa = data_axes(mesh)
+    w_size = n_worker_groups(mesh)
+    tok_spec = ((SH._worker_entry(wa),)
+                if shape.global_batch % w_size == 0 else (None,))
+    return {"params": params_struct(cfg, mesh, train=False, dtype=dtype),
+            "token": _struct((shape.global_batch,), torch.int32, tok_spec),
+            "pos": shape.seq_len - 1,
+            "cache": cache_struct(cfg, shape, mesh, dtype)}
+
+
+def step_and_args(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                  gcfg: GossipConfig | None = None, algo="asgd",
+                  engine: str = "pytree", dtype=PARAM_DTYPE, workers=None,
+                  w_local=None, layers=None):
+    """(step, input_specs): the port's step for the shape and engine —
+    make_train_step (with the struct-derived pack spec for 'packed' /
+    'pipelined'), make_prefill_step or make_decode_step — and its
+    arguments as :func:`input_specs` gives them, in the step's order.
+    ``w_local``: build the train step for one rank's slice of that many
+    workers (its pack spec's worker count), as the dry-run traces it.
+    ``layers``: the step runs only the first ``layers`` layers of the
+    stack (whole cycles) over the FULL model's arguments — the dry-run's
+    shallow traces, whose arguments, gossip round and gradient buffers
+    are then the full model's."""
+    specs = input_specs(cfg, shape, mesh, gcfg, engine=engine, dtype=dtype,
+                        workers=workers)
+    full_cfg = cfg
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if shape.kind == "train":
+        pack_spec = None
+        if engine != "pytree":
+            pack_spec = packed_spec_for(full_cfg, mesh,
+                                        gcfg or GossipConfig(), dtype,
+                                        workers)
+            if w_local is not None:
+                pack_spec = dataclasses.replace(pack_spec, n_workers=w_local)
+        return make_train_step(cfg, pack_spec=pack_spec, algo=algo,
+                               gcfg=gcfg,
+                               pipelined=engine == "pipelined"), specs
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg), specs
+    return make_decode_step(cfg), specs

@@ -12,8 +12,10 @@ attention layer at seq >= FLASH_MIN_SEQ with seq % 512 == 0 takes the
 chunked ``attention_flash`` ('L' with its window, 'G' with the prefix),
 as the reference's ``_attend_full`` does; shorter ones the dense form
 under the encoder's all-ones, the prefix, the sliding or the causal mask.
-Sharding hints, sequence parallelism and remat change no values on one
-device and are left out.
+The sharding hints (``models/hints.py constrain``) stand at the
+reference's points under its conditions (``cfg.attn_batch_shard``,
+``cfg.seq_parallel``); on plain tensors they return their argument, so
+no value changes.  Remat changes none either and is left out.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from .common import (AttnSpec, _gqa_expand, _project_qkv, attention_decode,
                      attention_dense, attention_flash, causal_mask,
                      init_attention, init_kv_cache, make_norm, prefix_mask,
                      sliding_mask)
+from .hints import WORKERS, constrain
 from .mlp import apply_mlp, apply_mlp_nonglu, init_mlp, init_mlp_nonglu
 from .moe import apply_moe, apply_moe_decode, init_moe
 from .rglru import (apply_rglru, apply_rglru_decode, init_rglru,
@@ -169,11 +172,17 @@ def _attend_full(cfg: ModelConfig, spec, p_attn, h, positions, ltype,
     sliding mask, the causal mask."""
     seq = h.shape[2]
     window = cfg.sliding_window if ltype == "L" else None
+    batch_shard = _batch_shard(cfg, h)
+    if batch_shard:
+        h = constrain(h, WORKERS, "model", None, None)
     if seq >= FLASH_MIN_SEQ and seq % 512 == 0:
-        return attention_flash(
+        out = attention_flash(
             p_attn, spec, h, positions, window=window,
             prefix_len=prefix_len if ltype == "G" or window is None
             else None)
+        if batch_shard:
+            out = constrain(out, WORKERS, "model", None, None)
+        return out
     if ltype == "E":                   # encoder: bidirectional
         mask = torch.ones((seq, seq), dtype=torch.bool, device=h.device)
     elif prefix_len:
@@ -204,6 +213,10 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
     returns them (its post-conv tail is computed and dropped)."""
     _layer_type(cfg, ltype)
     _, norm = make_norm(cfg.norm_type)
+    if cfg.seq_parallel:
+        # sequence parallelism: the residual stream's S axis over `model`
+        # between the matmul segments
+        x = constrain(x, WORKERS, None, "model", None)
     h = norm(p["ln1"], x)
     cache = None
     if ltype in ("G", "L", "E"):
@@ -222,6 +235,9 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
             cache["k"][:, :, :seq] = k.to(torch.bfloat16)
             cache["v"][:, :, :seq] = v.to(torch.bfloat16)
     elif ltype == "R":
+        if _batch_shard(cfg, h):
+            # the batch-sharded recurrent block
+            h = constrain(h, WORKERS, "model", None, None)
         out, h_fin = apply_rglru(p["rglru"], h)
         if return_cache:
             K = p["rglru"]["conv_w"].shape[1]
@@ -244,8 +260,16 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
         if return_cache and cache is not None:
             cache["cross_k"] = k.to(torch.bfloat16)
             cache["cross_v"] = v.to(torch.bfloat16)
+    if cfg.seq_parallel:
+        x = constrain(x, WORKERS, None, "model", None)
     x, aux = _ffn(cfg, p, x, norm)
     return x, aux, cache
+
+
+def _batch_shard(cfg: ModelConfig, h) -> bool:
+    """Batch-sharded attention / recurrent block: the config asks for it
+    and each worker's batch (h (W, B, S, D)) divides over 16."""
+    return cfg.attn_batch_shard and h.shape[1] >= 16 and h.shape[1] % 16 == 0
 
 
 def _ffn(cfg: ModelConfig, p, x, norm):

@@ -31,15 +31,24 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 
+def _on_meta(device) -> bool:
+    return device is not None and torch.device(device).type == "meta"
+
+
 def dense_init(generator, shape, in_axis=-2, dtype=torch.float32,
                device=None):
-    """LeCun-normal (fan-in)."""
+    """LeCun-normal (fan-in); on the meta device the leaf alone (shapes
+    only, no generator)."""
+    if _on_meta(device):
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
     x = torch.randn(shape, generator=generator, device=device)
     return (x / math.sqrt(fan_in)).to(dtype)
 
 
 def embed_init(generator, shape, dtype=torch.float32, device=None):
+    if _on_meta(device):
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=generator, device=device)
     return (x * 0.02).to(dtype)
 

@@ -78,10 +78,15 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device=None,
     device; the numbers differ from the reference's jax.random init — use
     repro_torch.convert to carry reference weights over).  An encoder
     config adds ``params["encoder"]``: its 'E' layers stacked under
-    "scan" and its own "final_norm"."""
+    "scan" and its own "final_norm".  On the ``meta`` device the leaves
+    are made directly, with no generator: shapes and dtypes only, nothing
+    allocated (the dry-run's params)."""
     check_supported(cfg)
     cycle, n_full, tail = cycle_structure(cfg)
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    if torch.device(device or "cpu").type == "meta":
+        gen = None
+    else:
+        gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     norm_init, _ = make_norm(cfg.norm_type)
     params = {
         "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype,

@@ -64,10 +64,18 @@ def route(params, x, topk):
     E = logits.shape[-1]
     # means as the reference's compile: a multiply by the f32 reciprocal
     inv_t = 1.0 / x.shape[-2]
-    f = F.one_hot(idx, E).sum(dim=(-3, -2)).float() * inv_t
+    f = _one_hot(idx, E).sum(dim=(-3, -2)).float() * inv_t
     p = probs.sum(dim=-2) * inv_t
     aux = E * (f * p).sum(dim=-1)
     return w.to(x.dtype), idx, aux, f
+
+
+def _one_hot(idx, n):
+    """``F.one_hot(idx, n)`` (int64) as a comparison with ``arange``: the
+    same ops on every device, where ``F.one_hot`` checks its range on the
+    CPU (a host sync) and not on CUDA, so a meta-device trace
+    (launch/dryrun.py) counts what the card runs."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
 
 
 def _blocked_cumsum(x, blk=4096):
@@ -105,7 +113,7 @@ def capacity_slots(idx, E, C):
     pair's position is the running count of its expert over the pairs
     before it, the reference's; pairs at position >= C are dropped."""
     flat_e = idx.reshape(idx.shape[:-2] + (-1,))
-    onehot = F.one_hot(flat_e, E)                       # (..., N, E)
+    onehot = _one_hot(flat_e, E)                        # (..., N, E)
     pos_in_e = _blocked_cumsum(onehot) - 1              # running count
     pos = torch.gather(pos_in_e, -1, flat_e[..., None])[..., 0]
     keep = pos < C                                      # overflow dropped

@@ -8,8 +8,8 @@ Every rank reads the same inputs (global arrays, made by the test from a
 seed and run through the reference's engines), calls the port's regions
 (repro_torch.launch.mesh) on its own slices round by round, and writes
 what it got to OUT_DIR/rank<RANK>.npz: its local slices, the bytes it put
-on the wire, and the outcome of the mesh checks.  Imports torch and the
-port only.
+on the wire beside the bytes launch/hlo_analysis.py plans for that send,
+and the outcome of the mesh checks.  Imports torch and the port only.
 """
 import sys
 
@@ -22,6 +22,7 @@ from repro_torch.core.gossip import GossipConfig, leaf_groups
 from repro_torch.core.packing import pack_spec_w
 from repro_torch.kernels.gossip_blend import (gossip_blend_w_resident,
                                               gossip_blend_worker_batched)
+from repro_torch.launch import hlo_analysis as HA
 from repro_torch.launch import mesh as MM
 
 W, BLOCK_ROWS, P, EPS = 8, 8, 2, 0.05
@@ -144,6 +145,12 @@ class Rank:
                     self.put(f"{prefix}{key}.{name}.{n}", x)
                 self.out[f"{prefix}{key}.{name}.bytes"] = np.int64(
                     regions[name].bytes_sent - before[name])
+                if name != "cons":     # the regions that send
+                    self.out[f"plan:{prefix}{key}.{name}"] = np.int64(
+                        HA.ppermute_bytes(
+                            self.spec, gcfg, MM.n_worker_groups(mesh),
+                            MM.local_worker_count(mesh, W), si, bi,
+                            elastic=elastic))
 
     def run_workers(self, mesh):
         """shard_map_workers over the worker-batched blend (B2r/B2a), the

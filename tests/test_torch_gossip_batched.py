@@ -240,9 +240,14 @@ def test_cpu_wrappers_launch_nothing_and_check_operands():
         gossip_reduce_w(t(w), t(dw).double(), t(ext))
     with pytest.raises(ValueError, match="P >= 1"):
         gossip_reduce_w(t(w), t(dw), t(ext)[:, :0])
+    # meta operands (the dry-run) give the output's shape; operands on
+    # several devices raise
     meta = [x.to("meta") for x in (t(w), t(dw), t(ext))]
-    with pytest.raises(ValueError, match="run on cuda"):
-        gossip_reduce_w(*meta)
+    acc = gossip_reduce_w(*meta)
+    assert acc.device.type == "meta" and acc.shape == (w.shape[0],
+                                                       ext.shape[1], 3)
+    with pytest.raises(ValueError, match="several devices"):
+        gossip_reduce_w(t(w), *meta[1:])
     # no externals: the plain SGD step and no gates, as in the reference
     out, g = tops.gossip_blend_packed(t(w[0]), t(dw[0]), t(ext[0])[:0], EPS)
     assert g.shape == (0,) and torch.equal(out, t(w[0]) - EPS * t(dw[0]))

@@ -166,9 +166,14 @@ def test_operand_checks():
     with pytest.raises(ValueError, match="ext4d must be"):
         gossip_reduce_w_resident(w, dw, ext[:, :, :64], (0, R),
                                  block_rows=BR)
+    # meta operands (the dry-run) give the output's shape and launch
+    # nothing; operands on several devices raise
     meta = [x.to("meta") for x in (w, dw, ext)]
-    with pytest.raises(ValueError, match="run on cuda"):
-        gossip_reduce_w_resident(*meta, (0, R), block_rows=BR)
+    acc = gossip_reduce_w_resident(*meta, (0, R), block_rows=BR)
+    assert acc.device.type == "meta" and acc.shape == (w.shape[0],
+                                                       ext.shape[1], 3)
+    with pytest.raises(ValueError, match="several devices"):
+        gossip_reduce_w_resident(w, *meta[1:], (0, R), block_rows=BR)
 
 
 def test_choose_block_rows_fixed_fallback():

@@ -86,3 +86,11 @@ def test_moe_slice_modules_are_checked(module):
 def test_mesh_slice_modules_are_checked(module):
     """The mesh slice's modules are among the files checked above."""
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", [
+    "launch/sharding.py", "models/hints.py", "launch/hlo_analysis.py",
+    "launch/dryrun.py", "launch/steps.py"])
+def test_dryrun_slice_modules_are_checked(module):
+    """The dry-run slice's modules are among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES

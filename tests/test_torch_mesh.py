@@ -325,6 +325,21 @@ def test_only_the_partition_goes_on_the_wire(launch, cid):
     assert full or "elastic" in cid
 
 
+@pytest.mark.parametrize("cid", CASES)
+def test_planned_bytes_equal_the_tally(launch, cid):
+    """launch/hlo_analysis.py ppermute_bytes — the send planned from the
+    row plan, with no process group — equals the bytes each rank's
+    regions tallied, every round and region (the pod mesh's too)."""
+    _, _, ranks, _ = launch
+    seen = 0
+    for rk in ranks:
+        for k in rk:
+            if k.startswith((f"plan:{cid}.", f"plan:pod:{cid}.")):
+                assert int(rk[k]) == int(rk[f"{k[len('plan:'):]}.bytes"]), k
+                seen += int(rk[k]) > 0
+    assert seen
+
+
 @pytest.mark.parametrize("engine", ["packed", "pipelined"])
 @pytest.mark.parametrize("wire", ["f32", "int8"])
 def test_elastic_region_kills_and_revives(launch, engine, wire):

@@ -145,8 +145,12 @@ def test_binding_checks_operands():
         ssd_scan_chunked(args[0].double(), *args[1:], 32)
     with pytest.raises(ValueError, match="one state group"):
         ssd_scan(x, dt, A, torch.cat([B, B], 2), torch.cat([C, C], 2))
-    with pytest.raises(ValueError, match="runs on cuda"):
-        ssd_scan_chunked(*(t.to("meta") for t in args), 32)
+    # meta operands (the dry-run) give the outputs' shapes; operands on
+    # several devices raise
+    y, h = ssd_scan_chunked(*(t.to("meta") for t in args), 32)
+    assert y.device.type == "meta" and y.shape == args[0].shape
+    with pytest.raises(ValueError, match="several devices"):
+        ssd_scan_chunked(args[0].to("meta"), *args[1:], 32)
 
 
 def kernel_layout(x, dt, A, B, C):
