@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py
 
+Every training forward rematerializes, as the reference's train step does
+(each full cycle of the layer pattern run without a graph; backward
+reruns it).
+
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. build every CUDA kernel of the port from its sources (one nvcc per
      source, all started together) and print the build time;
@@ -19,7 +23,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      mode (f32 and int8 wire) and 'rows' mode;
   4. [main] the pipelined path: ``repro_torch.launch.train`` on full
      smollm-135m, W=4, --pipelined --wire-format int8, launch counters
-     zeroed just before and read just after — B1r/B1a every round;
+     zeroed just before and read just after — B1r/B1a every round; then
+     on its trained state the step with the forward rematerialized and
+     with ``make_train_step(..., remat=False)``, in turns: the price of
+     remat in step time beside its saving in peak memory;
   5. [breakdown]/[profile] the pieces of one full-size pipelined step,
      and its exchange and blend on an elastic state (live = ones);
      [mesh-check]/[mesh] launch/mesh.py's four regions at one rank of an
@@ -100,8 +107,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  17. [ssm-train] the SSM training path, ``repro_torch.launch.train`` on
      full mamba2-370m (48 layers, d_model 1024, random weights from seed
      0), W=4, batch 2, seq 512, --pipelined --wire-format int8, 8 steps,
-     counters zeroed before and read after — B5 and B5b 48 times a step,
-     B1r/B1a once — its steady step time and peak memory, the forward and
+     counters zeroed before and read after — B5 96 times a step (backward
+     reruns each layer's forward), B5b 48, B1r/B1a once — its steady step
+     time and peak memory, the forward and
      backward of one step by CUDA events and its profile;
  18. [moe-train-check] reduced granite-moe-1b-a400m and phi3.5-moe, 3
      pipelined int8 steps from distinct worker starts, GPU (B1r/B1a)
@@ -139,8 +147,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ensembles atol 1e-4, n_good equal and not all 0;
  24. [gemma-train] ``repro_torch.launch.train`` on full gemma3-1b (26
      layers: 22 'L' with window 512, 4 'G'; random weights from seed 0),
-     W=2 (at W=4 a step of seq 1024 runs out of the card's memory), batch
-     2, seq 1024, where the window binds, --pipelined --wire-format int8,
+     W=4, batch 2, seq 1024, where the window binds, --pipelined
+     --wire-format int8,
      8 steps, counters zeroed before and read after — B1r/B1a once a step
      — its steady step time and peak memory, the forward and backward of
      one step by CUDA events, its profile, and B1r/B1a's device time in
@@ -153,9 +161,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      backward at seq 4096, where its window of 2048 binds (attention_flash
      with the window, counted), by CUDA events;
  26. [gemma-blend] B1r/B1a as [moe-blend] on the ensembles the Gemma paths
-     blend: gemma3-1b at W=2 (2.0e9 f32 elements) and at W=4 (4.0e9, past
-     2^31), and the depth-cut recurrentgemma-9b at W=2 (3.4e9, past
-     2^31);
+     blend: gemma3-1b at W=4 (4.0e9 f32 elements, past 2^31) and the
+     depth-cut recurrentgemma-9b at W=2 (3.4e9, past 2^31);
  27. [gemma-serve-check] reduced gemma3-1b and recurrentgemma-9b as
      [moe-serve-check] (prompts of 32, 4 decode steps past the window of
      16), the 'R' layers' prefilled conv cache zero; then reduced
@@ -175,12 +182,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      4 layers, d_model 384; 1500 frames a sample), W=4, batch 2, seq 128,
      pipelined int8, 8 steps, counters zeroed before and read after —
      B1r/B1a once a step — then the readings of [24];
- 31. [vlm-train] the same on paligemma-3b at full width with its depth
-     cut from 18 to 9 layers (at 18 a W=2 step runs out of the card's
-     memory), W=2, 256 patches and 128 text tokens a sample;
+ 31. [vlm-train] the same on full paligemma-3b (18 layers), W=2, 256
+     patches and 128 text tokens a sample;
  32. [vlm-blend] / [audio-blend] B1r/B1a as [moe-blend] on the ensembles
-     [vlm-train] and [audio-train] blend, and on paligemma's full-depth
-     W=2 one (5.0e9 elements, past 2^31);
+     [vlm-train] and [audio-train] blend (paligemma's 5.0e9 elements, past
+     2^31);
  33. [vlm-audio-serve-check] both reduced archs as [moe-serve-check]
      (prompts of 32 after the patches or frames; whisper's decode reads
      its bf16 cross-attention cache), then reduced paligemma at a prompt
@@ -195,24 +201,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      new tokens) at prompts of 128 (384 positions, the dense prefix mask)
      and 1792 (2048 positions: its 18 layers' prefill through
      attention_flash with prefix_len 256, counted);
- 36. [dryrun] ``repro_torch.launch.dryrun.run_pair`` on named pairs of the
+ 36. [qwen-serve-check] reduced qwen2.5-14b (QKV biases) and qwen3-14b
+     (qk RMSNorm), their biases and norm scales perturbed by 0.5 x N(0, 1),
+     as [moe-serve-check]; [qwen-train-check] both as [gemma-train-check];
+ 37. [qwen-serve] both at full size (14.8e9 params, 55.0 GiB f32) through
+     the readings of [moe-serve] (batch 4, prompt 2048, 32 new tokens:
+     every layer of the prefill through attention_flash, counted);
+ 38. [qwen-train] ``repro_torch.launch.train`` on each at full width with
+     its depth cut to 2 layers, W=2, batch 2, seq 128, pipelined int8, 8
+     steps, counters zeroed before and read after — B1r/B1a once a step on
+     an ensemble of 4.2e9 and 4.4e9 elements, past 2^31;
+ 39. [dryrun] ``repro_torch.launch.dryrun.run_pair`` on named pairs of the
      production (16, 16) mesh (a fake process group of 256 ranks, one
      process): smollm-135m x train_4k on the pytree, packed and pipelined
      engines, mamba2-370m x prefill_32k (B5 modeled) and x train_4k
-     pipelined (B5 and B5b modeled), mamba2-370m x decode_32k; each
+     pipelined (B5 twice a layer and B5b once modeled), mamba2-370m x
+     decode_32k; each
      record's dominant term, useful ratio, peak and fits, and trace times;
      B5's and B5b's workspace sizes as the meta branches model them
      against the kernels' own (``ssd_workspace_floats``,
      ``ssd_bwd_workspace_floats``);
- 37. [dryrun-check] the dry-run's meta trace of the [main] step (full
+ 40. [dryrun-check] the dry-run's meta trace of the [main] step (full
      smollm-135m, W=4, batch 2, seq 128, pipelined int8) against that step
      run once on the card, its state built as the trainer builds it, both
      under the dry-run's counters: the arguments' shapes, dtypes and bytes
      equal, the aten FLOPs equal FlopCounterMode on the card exactly, the
      modeled B1r/B1a calls equal kernels.launch_counts(), and the modeled
      peak over ``torch.cuda.max_memory_allocated()`` (above what was
-     allocated before the state) printed with the tracker's own reading on
-     the card.
+     allocated before the state) within PEAK_RATIO, printed with the
+     tracker's own reading on the card; the step rematerializes.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and last the device JSON line.  Without a GPU, or without the repo's
 sources beside it, it exits non-zero and prints no result.
@@ -248,6 +265,10 @@ START_NOISE = 0.1                    # [check]: per-worker start offsets
 ELASTIC_ROUNDS = 5                   # [elastic-check]
 CHURN_DEAD, CHURN_ROUNDS = 2, (1, 2)  # [elastic-check]: worker 2 is down
 #                                       in rounds 1-2
+REMAT_REPS = 4                       # [main]: steps a turn, remat vs not
+REMAT_PRICE_MAX = 1.9                # [main]: remat's step over remat=False's
+#                                      (1.30-1.65 measured; 1.82-2.05 with
+#                                      torch.utils.checkpoint, PERF.md §6)
 
 
 def log(msg):
@@ -616,6 +637,7 @@ def steady_median(step_seconds):
 
 def phase_main_path(torch):
     from repro_torch import kernels as K
+    from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
     from repro_torch.launch import train
 
@@ -644,9 +666,65 @@ def phase_main_path(torch):
         f"warm-up); steady median {median * 1e3:.2f} ms; n_good "
         f"{out['n_good']}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del out
+    state, spec = out["state"], out["spec"]
+    del out, wq
+    torch.cuda.empty_cache()
+    remat_readings(torch, "main", get_arch("smollm-135m"), state, spec, W,
+                   128, torch.device("cuda"))
+    del state
     torch.cuda.empty_cache()
     return counts, median
+
+
+def remat_readings(torch, tag, cfg, state, spec, wn, seq, device):
+    """The trainer's pipelined int8 step on a trained packed ``state`` of
+    ``wn`` workers (batch 2, ``seq`` tokens) with the forward
+    rematerialized (the default) and with ``make_train_step(...,
+    remat=False)``, in turns (remat, none, none, remat), REMAT_REPS steps
+    a turn from the same state: each one's median step time (host clock
+    to a device sync) and peak memory, the state included.  Fails where
+    remat's step takes over REMAT_PRICE_MAX times the other's."""
+    from repro_torch.core.asgd import ASGDConfig
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (wn, 2, seq), device=device,
+        generator=torch.Generator(device=device).manual_seed(0))}
+    gcfg = train.gossip_config(wn, wire_format="int8")
+    steps = {r: make_train_step(cfg, pack_spec=spec, gcfg=gcfg,
+                                acfg=ASGDConfig(eps=EPS), pipelined=True,
+                                remat=r) for r in (True, False)}
+    times = {True: [], False: []}
+    peaks = {True: 0.0, False: 0.0}
+    for remat in (True, False, False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(REMAT_REPS):
+            t0 = time.perf_counter()
+            out = steps[remat](state["params"], state["gossip"],
+                               state["opt"], batch, 0, 1)
+            torch.cuda.synchronize()
+            times[remat].append(time.perf_counter() - t0)
+            if not math.isfinite(float(out[3]["loss"])):
+                raise AssertionError(f"{tag}: remat={remat} loss "
+                                     f"{out[3]['loss']}")
+            del out
+        peaks[remat] = max(peaks[remat],
+                           torch.cuda.max_memory_allocated() / 2**30)
+    med = {r: sorted(v)[len(v) // 2] * 1e3 for r, v in times.items()}
+    log(f"[{tag}] remat vs make_train_step(remat=False), in turns, "
+        f"{REMAT_REPS} steps a turn: median step {med[True]:.2f} / "
+        f"{med[False]:.2f} ms (remat costs {med[True] - med[False]:.2f} ms, "
+        f"{med[True] / med[False] - 1:.1%}); peak memory {peaks[True]:.2f} / "
+        f"{peaks[False]:.2f} GiB (the state included)")
+    if med[True] > REMAT_PRICE_MAX * med[False]:
+        raise AssertionError(f"{tag}: remat's step {med[True]:.2f} ms over "
+                             f"{REMAT_PRICE_MAX} x remat=False's "
+                             f"{med[False]:.2f} ms")
+    torch.cuda.empty_cache()
+    return med, peaks
 
 
 def churn_live(torch, t, device):
@@ -2481,9 +2559,12 @@ def phase_ssm_train_check(torch, device):
     gpu, cpu, n_good, err, counts, seed = pipelined_check(
         torch, device, "mamba2-370m", "ssm-train-check")
     layers = get_arch("mamba2-370m").reduced().n_layers
-    if counts.get(SCAN) != 3 * layers or counts.get(SCAN_BWD) != 3 * layers:
+    # the forward rematerializes: backward reruns B5 once a layer
+    if counts.get(SCAN) != 2 * 3 * layers or \
+            counts.get(SCAN_BWD) != 3 * layers:
         raise AssertionError(f"ssm-train-check: launches {counts} in 3 "
-                             f"steps of {layers} 'S' layers")
+                             f"steps of {layers} 'S' layers (B5 twice a "
+                             f"layer a step under remat)")
     log(f"[ssm-train-check] reduced mamba2-370m, W={W}, seq 32 (4 chunks of "
         f"8), 3 pipelined int8 steps, draw seed {seed}: GPU vs CPU losses "
         f"{[round(l, 6) for l in gpu]} vs {[round(l, 6) for l in cpu]}, "
@@ -2507,7 +2588,8 @@ def phase_ssm_train(torch, device):
     from repro_torch.models.model import init_model
 
     cfg = get_arch("mamba2-370m")
-    want = {SCAN: cfg.n_layers * SSM_TRAIN_STEPS,
+    # B5 twice a layer a step: the rematerialized forward reruns in backward
+    want = {SCAN: 2 * cfg.n_layers * SSM_TRAIN_STEPS,
             SCAN_BWD: cfg.n_layers * SSM_TRAIN_STEPS,
             REDUCE: SSM_TRAIN_STEPS, APPLY: SSM_TRAIN_STEPS}
     out, counts, peak = run_trainer(torch, "ssm-train",
@@ -2835,7 +2917,8 @@ def phase_moe_serve_check(torch, device):
         serve_check_free(torch, device, arch, "moe-serve-check")
 
 
-def serve_check_free(torch, device, arch, tag, plen=32, steps=4):
+def serve_check_free(torch, device, arch, tag, plen=32, steps=4,
+                     perturb=False):
     """Reduced ``arch`` (batch 2, prompts of ``plen`` after the frontend's
     stub frames or patches), the same CPU-made weights and prompts on the GPU
     and the CPU, the CPU's greedy tokens fed to every run.  Each decode
@@ -2851,7 +2934,8 @@ def serve_check_free(torch, device, arch, tag, plen=32, steps=4):
     elements that differ in bf16 steps: the KV cache is bf16, and a GPU-vs-
     CPU difference of one f32 rounding can round an element to the
     neighbouring bf16 value, which free-running decode carries into every
-    later step.  Returns the GPU's cache after the prefill."""
+    later step.  ``perturb``: the weights go through :func:`perturbed`
+    first.  Returns the GPU's cache after the prefill."""
     from repro_torch import kernels as K
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.tree import tree_map
@@ -2861,6 +2945,8 @@ def serve_check_free(torch, device, arch, tag, plen=32, steps=4):
 
     cfg = get_arch(arch).reduced()
     params = init_model(cfg, 0, device="cpu")
+    if perturb:
+        params = perturbed(torch, params)
     pg = tree_map(lambda x: x.to(device), params)
     gen = torch.Generator().manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab, (2, plen), generator=gen),
@@ -3077,11 +3163,10 @@ def serve_readings(torch, device, cfg, tag, note, prompt=SERVE_PROMPT):
 # ---------------------------------------------------------------------------
 
 GEMMA_ARCH, RG_ARCH = "gemma3-1b", "recurrentgemma-9b"
-GEMMA_W = 2                      # [gemma-train] workers: at 4 and seq 1024
-#                                  a step runs out of the 80 GB (PERF.md §4)
+GEMMA_W = 4                      # [gemma-train] workers: W=4 fits with the
+#                                  forward rematerialized (before, only W=2;
+#                                  PERF.md §4)
 GEMMA_SEQ = 1024                 # [gemma-train]: past the window of 512
-GEMMA_BLEND_WS = (GEMMA_W, 4)    # [gemma-blend]: the path's ensemble, then
-#                                  W=4's (past 2^31)
 RG_W, RG_LAYERS = 2, 3           # [rg-train]: one (R, R, L) cycle, full width
 RG_SEQ = 128                     # [rg-train]'s trainer run
 RG_WINDOW_SEQ = 4096             # its 'L' layer's reading: window 2048 binds
@@ -3120,39 +3205,45 @@ def train_readings(torch, tag, cfg, state, spec, wn, seq, device):
     """On a trained packed ``state`` of ``wn`` workers (batch 2, ``seq``
     tokens, with the frontend's stub frames or patches): the device time
     of B1r/B1a in one whole pipelined step, then one step's
-    forward+backward by CUDA events and a profile of it.  The allocator's
-    cache is emptied before each: a step needs most of the card, and the
-    cache of the reading before holds it in pieces."""
+    forward+backward by CUDA events and a profile of it, under the
+    trainer's allocator setting (``launch/train.py
+    expandable_segments``).  The allocator's cache is emptied before
+    each: a step needs most of the card, and the cache of the reading
+    before holds it in pieces."""
     from repro_torch.core.asgd import ASGDConfig
     from repro_torch.launch import train
     from repro_torch.launch.serve import stub_inputs
     from repro_torch.launch.steps import make_train_step, packed_loss_and_grad
 
-    gen = torch.Generator(device=device).manual_seed(0)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (wn, 2, seq),
-                                     device=device, generator=gen),
-             **stub_inputs(cfg, (wn, 2), gen, device)}
-    packed = state["params"]
-    step = make_train_step(cfg, pack_spec=spec,
-                           gcfg=train.gossip_config(wn, wire_format="int8"),
-                           acfg=ASGDConfig(eps=EPS), pipelined=True)
-    torch.cuda.empty_cache()
-    dev = device_ms(torch, lambda: step(packed, state["gossip"],
-                                        state["opt"], batch, 0, 1),
-                    GB_KERNELS, 3)
-    if dev is None or len(dev[2]) != 3:
-        raise AssertionError(f"{tag}: B1r/B1a's kernels not traced in a "
-                             f"step: {dev}")
-    log(f"[{tag}] B1r/B1a in one pipelined step: {dev[0]:.4f} ms of device "
-        f"time ({dev[1]} device launches: {', '.join(dev[2])}; "
-        f"torch.profiler over 3 steps kept {dev[3]} of {dev[1] * 3} events)")
-    torch.cuda.empty_cache()
-    fb = lambda: packed_loss_and_grad(cfg, packed, batch, spec)  # noqa: E731
-    t_fb = cuda_ms(fb, 3)
-    log(f"[{tag}] forward+backward of one step (W={wn}, batch 2, seq "
-        f"{seq}, packed gradient): {t_fb:.3f} ms by CUDA events")
-    torch.cuda.empty_cache()
-    profile_step(torch, f"{tag}-profile", fb, what="one forward+backward")
+    with train.expandable_segments(device):
+        gen = torch.Generator(device=device).manual_seed(0)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (wn, 2, seq),
+                                         device=device, generator=gen),
+                 **stub_inputs(cfg, (wn, 2), gen, device)}
+        packed = state["params"]
+        step = make_train_step(
+            cfg, pack_spec=spec,
+            gcfg=train.gossip_config(wn, wire_format="int8"),
+            acfg=ASGDConfig(eps=EPS), pipelined=True)
+        torch.cuda.empty_cache()
+        dev = device_ms(torch, lambda: step(packed, state["gossip"],
+                                            state["opt"], batch, 0, 1),
+                        GB_KERNELS, 3)
+        if dev is None or len(dev[2]) != 3:
+            raise AssertionError(f"{tag}: B1r/B1a's kernels not traced in "
+                                 f"a step: {dev}")
+        log(f"[{tag}] B1r/B1a in one pipelined step: {dev[0]:.4f} ms of "
+            f"device time ({dev[1]} device launches: {', '.join(dev[2])}; "
+            f"torch.profiler over 3 steps kept {dev[3]} of {dev[1] * 3} "
+            f"events)")
+        torch.cuda.empty_cache()
+        fb = lambda: packed_loss_and_grad(  # noqa: E731
+            cfg, packed, batch, spec)
+        t_fb = cuda_ms(fb, 3)
+        log(f"[{tag}] forward+backward of one step (W={wn}, batch 2, seq "
+            f"{seq}, packed gradient): {t_fb:.3f} ms by CUDA events")
+        torch.cuda.empty_cache()
+        profile_step(torch, f"{tag}-profile", fb, what="one forward+backward")
 
 
 def train_summary(out, counts, peak):
@@ -3286,7 +3377,8 @@ def phase_rg_train(torch, device):
         f"({''.join(cfg.layer_types)}), W={RG_W}, seq {RG_SEQ}, packed "
         f"ensemble {tuple(state['params'].shape)} = "
         f"{state['params'].numel():,} f32 elements ({cfg.param_count():,} "
-        f"params a replica, analytic); " + train_summary(out, counts, peak))
+        f"params a replica, analytic); "
+        + train_summary(out, counts, peak))
     layer = tree_map(lambda v: v[:, 0], out["params"]["scan"]["pos2"])
     del out
     torch.cuda.empty_cache()
@@ -3309,14 +3401,12 @@ def phase_rg_train(torch, device):
 
 def phase_gemma_blend(torch, device):
     """:func:`blend_check` on the ensembles the Gemma training paths
-    blend: gemma3-1b at each of GEMMA_BLEND_WS workers, and the depth-cut
-    recurrentgemma-9b at RG_W."""
+    blend: gemma3-1b at GEMMA_W workers (past 2^31 elements), and the
+    depth-cut recurrentgemma-9b at RG_W."""
     from repro_torch.configs.registry import get_arch
 
-    for wn in GEMMA_BLEND_WS:
-        blend_check(torch, device, "gemma-blend", get_arch(GEMMA_ARCH), wn,
-                    " (the [gemma-train] path's ensemble)" if wn == GEMMA_W
-                    else "")
+    blend_check(torch, device, "gemma-blend", get_arch(GEMMA_ARCH), GEMMA_W,
+                " (the [gemma-train] path's ensemble)")
     blend_check(torch, device, "gemma-blend", rg_cut(), RG_W,
                 f" ({RG_LAYERS} layers; the [rg-train] path's ensemble)")
 
@@ -3381,20 +3471,10 @@ def phase_gemma_serve(torch, device):
 
 VLM_ARCH, AUDIO_ARCH = "paligemma-3b", "whisper-tiny"
 VLM_W, AUDIO_W = 2, 4             # [vlm-train], [audio-train] workers
-VLM_LAYERS = 9                    # [vlm-train]'s depth: at all 18 a W=2
-#                                   step runs out of the 80 GB (PERF.md §4)
 FRONTEND_SEQ = 128                # text tokens a training sample
 AUDIO_PROMPT = 416                # + 32 new tokens: whisper's 448 positions
 VLM_PROMPTS = (128, 1792)         # + 256 patches: 384 (dense) and 2048
 #                                   (attention_flash) positions
-
-
-def vlm_cut():
-    """paligemma-3b at full width, its depth VLM_LAYERS."""
-    import dataclasses
-
-    from repro_torch.configs.registry import get_arch
-    return dataclasses.replace(get_arch(VLM_ARCH), n_layers=VLM_LAYERS)
 
 
 def frontend_train(torch, device, tag, cfg, wn):
@@ -3448,24 +3528,21 @@ def phase_audio_train(torch, device):
 
 
 def phase_vlm_train(torch, device):
-    """paligemma-3b at VLM_LAYERS (256 patches a sample) through
-    :func:`frontend_train` at VLM_W workers."""
-    frontend_train(torch, device, "vlm-train", vlm_cut(), VLM_W)
+    """Full paligemma-3b (18 layers, 256 patches a sample) through
+    :func:`frontend_train` at VLM_W workers (at 9 layers before the forward
+    rematerialized: at 18 a step ran out of the card's memory)."""
+    from repro_torch.configs.registry import get_arch
+    frontend_train(torch, device, "vlm-train", get_arch(VLM_ARCH), VLM_W)
 
 
 def phase_frontend_blend(torch, device):
     """:func:`blend_check` on the ensembles the frontend training paths
-    blend: paligemma-3b's at VLM_LAYERS and VLM_W ([vlm-blend]; also the
-    full-depth one where that path runs cut), whisper-tiny's at AUDIO_W
-    ([audio-blend])."""
+    blend: paligemma-3b's at VLM_W ([vlm-blend]), whisper-tiny's at
+    AUDIO_W ([audio-blend])."""
     from repro_torch.configs.registry import get_arch
 
-    cfg = vlm_cut()
-    blend_check(torch, device, "vlm-blend", cfg, VLM_W,
-                f" ({cfg.n_layers} layers; the [vlm-train] path's ensemble)")
-    if cfg.n_layers != get_arch(VLM_ARCH).n_layers:
-        blend_check(torch, device, "vlm-blend", get_arch(VLM_ARCH), VLM_W,
-                    " (full depth)")
+    blend_check(torch, device, "vlm-blend", get_arch(VLM_ARCH), VLM_W,
+                " (the [vlm-train] path's ensemble)")
     blend_check(torch, device, "audio-blend", get_arch(AUDIO_ARCH), AUDIO_W,
                 " (the [audio-train] path's ensemble)")
 
@@ -3524,6 +3601,89 @@ def phase_vlm_serve(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# the qwen archs: QKV biases (qwen2.5-14b) and per-head qk RMSNorm
+# (qwen3-14b), remat_policy 'dots'; served at full size (a 55 GiB f32
+# replica), trained at full width with the depth cut, through B1r/B1a on a
+# packed ensemble past 2^31 elements
+# ---------------------------------------------------------------------------
+
+QWEN_ARCHS = ("qwen2.5-14b", "qwen3-14b")
+QWEN_W, QWEN_LAYERS, QWEN_SEQ = 2, 2, 128   # [qwen-train]: full width,
+#                                             2 layers (PERF.md §4 says why)
+QWEN_PERTURBED = ("bq", "bk", "bv", "q_norm", "k_norm")
+
+
+def perturbed(torch, params, seed=3):
+    """``params`` with every leaf under a QWEN_PERTURBED key plus
+    0.5 x N(0, 1) from ``seed``: at init the QKV biases are zeros and the
+    qk-norm scales ones, which would hide a fault in either."""
+    g = torch.Generator().manual_seed(seed)
+
+    def walk(node, hit):
+        if isinstance(node, dict):
+            return {k: walk(v, hit or k in QWEN_PERTURBED)
+                    for k, v in sorted(node.items())}
+        return node + 0.5 * torch.randn(node.shape, generator=g) \
+            if hit else node
+    return walk(params, False)
+
+
+def phase_qwen_check(torch, device):
+    """[qwen-serve-check]: reduced qwen2.5-14b and qwen3-14b, their biases
+    and qk-norm scales perturbed, through :func:`serve_check_free`;
+    [qwen-train-check]: both through :func:`train_checks` (the workers'
+    seeded starts move every leaf, the biases and scales too)."""
+    for arch in QWEN_ARCHS:
+        serve_check_free(torch, device, arch, "qwen-serve-check",
+                         perturb=True)
+    train_checks(torch, device, "qwen-train-check", QWEN_ARCHS)
+
+
+def phase_qwen_serve(torch, device):
+    """[qwen-serve]: :func:`serve_readings` of both archs at full size
+    (batch 4, prompt 2048: 48 and 40 attention_flash calls a prefill)."""
+    from repro_torch.configs.registry import get_arch
+    for arch in QWEN_ARCHS:
+        serve_readings(torch, device, get_arch(arch), "qwen-serve",
+                       "full size")
+
+
+def phase_qwen_train(torch, device):
+    """[qwen-train]: ``repro_torch.launch.train`` on each arch at full
+    width, its depth cut to QWEN_LAYERS by :func:`depth_cut`, QWEN_W
+    workers, batch 2, seq QWEN_SEQ, pipelined int8, GEMMA_STEPS steps,
+    counters zeroed before and read after — B1r/B1a once a step on the
+    packed ensemble past 2^31 elements."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.gossip_blend.kernel import APPLY, REDUCE
+    from repro_torch.launch import train
+
+    for arch in QWEN_ARCHS:
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, n_layers=QWEN_LAYERS)
+        with depth_cut(train, arch, QWEN_LAYERS):
+            out, counts, peak = run_trainer(
+                torch, "qwen-train",
+                train_argv(arch, QWEN_W, QWEN_SEQ, GEMMA_STEPS), GEMMA_STEPS,
+                {REDUCE: GEMMA_STEPS, APPLY: GEMMA_STEPS})
+        packed = out["state"]["params"]
+        if not bool(torch.isfinite(packed).all()):
+            raise AssertionError(f"qwen-train {arch}: the ensemble is not "
+                                 f"finite")
+        log(f"[qwen-train] {arch} at full width, n_layers cut from "
+            f"{full.n_layers} to {QWEN_LAYERS}, remat_policy "
+            f"{cfg.remat_policy!r}, W={QWEN_W}, batch 2, seq {QWEN_SEQ}, "
+            f"packed ensemble {tuple(packed.shape)} = {packed.numel():,} f32 "
+            f"elements ({packed.numel() / 2**31:.2f} x 2^31; "
+            f"{cfg.param_count():,} params a replica, analytic); "
+            + train_summary(out, counts, peak))
+        del out, packed
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # the dry-run slice: launch/dryrun.py on named pairs, and its meta trace of
 # the main path's step held against that step on the card
 # ---------------------------------------------------------------------------
@@ -3536,6 +3696,7 @@ DRYRUN_PAIRS = (("smollm-135m", "train_4k", "pytree"),
                 ("mamba2-370m", "decode_32k", "pytree"))
 DRYRUN_FULL_BUDGET_S = 3.0           # full depth where it is predicted to
 #                                      trace within this
+PEAK_RATIO = (0.95, 1.05)            # [dryrun-check]: modeled peak / card's
 
 
 def phase_dryrun(torch):
@@ -3570,10 +3731,10 @@ def phase_dryrun(torch):
                     "launches") != 1:
                 raise AssertionError(f"[dryrun] {a} {e}: B1a not modeled "
                                      f"once a step: {rec['kernels']}")
-    for rec in records:       # B5 (and B5b in training) once an 'S' layer
-        n = get_arch(rec["arch"]).n_layers
+    for rec in records:       # B5 (and B5b in training) once an 'S' layer,
+        n = get_arch(rec["arch"]).n_layers   # B5 twice under remat
         want = {"prefill_32k": {"ssd_scan": n},
-                "train_4k": {"ssd_scan": n, "ssd_scan_bwd": n}}.get(
+                "train_4k": {"ssd_scan": 2 * n, "ssd_scan_bwd": n}}.get(
                     rec["shape"], {}) if rec["arch"] == "mamba2-370m" else {}
         for name, launches in want.items():
             if rec["kernels"].get(name, {}).get("launches") != launches:
@@ -3672,7 +3833,12 @@ def phase_dryrun_check(torch, device):
         raise AssertionError(f"[dryrun-check] launches: modeled {modeled} "
                              f"!= card {counts}")
     ratio = meta["peak"] / card_peak
-    log(f"[dryrun-check] [main] step (smollm-135m W={W}, pipelined int8): "
+    if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+        raise AssertionError(f"[dryrun-check] peak: modeled {meta['peak']} "
+                             f"B / card {card_peak} B = {ratio:.4f}, outside "
+                             f"{PEAK_RATIO}")
+    log(f"[dryrun-check] [main] step (smollm-135m W={W}, pipelined int8, "
+        f"rematerialized): "
         f"aten FLOPs meta {meta['flops']} = card {c.flops}; B1r/B1a "
         f"modeled {modeled} = launched {counts}; argument bytes "
         f"{meta['arg_bytes']} = {real_bytes}; aten bytes meta "
@@ -3680,8 +3846,7 @@ def phase_dryrun_check(torch, device):
         f"{meta['peak'] / 2**30:.3f} GiB, tracker on the card "
         f"{c.peak / 2**30:.3f} GiB, max_memory_allocated above the "
         f"{base / 2**30:.3f} GiB before {card_peak / 2**30:.3f} GiB, "
-        f"modeled / card {ratio:.4f}"
-        f"{'' if 0.8 <= ratio <= 1.25 else ' (outside 0.8-1.25)'}; meta "
+        f"modeled / card {ratio:.4f} (gate {PEAK_RATIO}); meta "
         f"trace {t_meta:.1f} s, {time.perf_counter() - t0:.1f} s in all")
     torch.cuda.empty_cache()
 
@@ -3765,6 +3930,9 @@ def main() -> int:
     phase_frontend_serve_check(torch, device)
     phase_audio_serve(torch, device)
     phase_vlm_serve(torch, device)
+    phase_qwen_check(torch, device)
+    phase_qwen_serve(torch, device)
+    phase_qwen_train(torch, device)
     phase_dryrun(torch)
     phase_dryrun_check(torch, device)
 

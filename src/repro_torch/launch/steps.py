@@ -57,25 +57,29 @@ PARAM_DTYPE = torch.bfloat16
 ENGINES = ("pytree", "packed", "pipelined")
 
 
-def packed_loss_and_grad(cfg: ModelConfig, packed, batch, spec):
+def packed_loss_and_grad(cfg: ModelConfig, packed, batch, spec, *,
+                         remat=True):
     """Per-worker losses (W,) and their gradient w.r.t. the packed
     ensemble, born packed: the W-batched forward reads ``unpack_w`` views
     of one leaf tensor, and one backward through the views' split fills
     the (W, R, LANE) gradient directly.  The workers' losses are
-    independent, so the gradient of their sum is each worker's own."""
+    independent, so the gradient of their sum is each worker's own.
+    ``remat``: models.model.forward_w's (backward recomputes each cycle
+    from the same views, so nothing may write ``packed`` before it)."""
     leaf = packed.detach().requires_grad_(True)
-    losses = M.loss_fn_w(cfg, unpack_w(leaf, spec), batch)
+    losses = M.loss_fn_w(cfg, unpack_w(leaf, spec), batch, remat=remat)
     losses.sum().backward()
     return losses.detach(), leaf.grad
 
 
-def tree_loss_and_grad(cfg: ModelConfig, params, batch):
+def tree_loss_and_grad(cfg: ModelConfig, params, batch, *, remat=True):
     """Per-worker losses (W,) and their gradient tree w.r.t. ``params``
     (a tree of (W, ...) leaves).  The workers' losses are independent, so
-    the gradient of their sum is each worker's own."""
+    the gradient of their sum is each worker's own.  ``remat``:
+    models.model.forward_w's."""
     leaves, treedef = flatten_sorted(params)
     xs = [x.detach().requires_grad_(True) for x in leaves]
-    losses = M.loss_fn_w(cfg, unflatten(treedef, xs), batch)
+    losses = M.loss_fn_w(cfg, unflatten(treedef, xs), batch, remat=remat)
     grads = torch.autograd.grad(losses.sum(), xs, allow_unused=True)
     return losses.detach(), unflatten(treedef, [
         torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads)])
@@ -83,8 +87,8 @@ def tree_loss_and_grad(cfg: ModelConfig, params, batch):
 
 def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
                     inner="sgd", gcfg: GossipConfig | None = None,
-                    acfg: ASGDConfig | None = None, pipelined=False,
-                    lr_schedule=None):
+                    acfg: ASGDConfig | None = None, remat=True,
+                    pipelined=False, lr_schedule=None):
     """Returns step(params, gossip, opt_state, batch, shift_idx, block_idx,
     live=None) -> (params, gossip, opt_state, metrics).
 
@@ -101,7 +105,9 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     algo: 'asgd' (paper), 'silent' (SimuParallelSGD: local steps only) or
     'sync' (synchronous data-parallel SGD).  inner: 'sgd' | 'momentum' |
     'adam'.  lr_schedule (pipelined only): step -> lr, the consume blend's
-    per-round lr operand.
+    per-round lr operand.  remat: every engine's forward checkpoints each
+    full cycle of the layer pattern per ``cfg.remat_policy``
+    (models.model.forward_w), the reference's default.
     Raises NotImplementedError for an arch the port does not carry
     (models.blocks.check_supported); 'S' layers train through the SSD
     scan's backward (kernel B5b on the card), so a batch's seq must be a
@@ -160,7 +166,7 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     def pytree_step(params, gossip, opt_state, batch, shift_idx, block_idx,
                     live=None):
         check_live(live)
-        loss, grads = tree_loss_and_grad(cfg, params, batch)
+        loss, grads = tree_loss_and_grad(cfg, params, batch, remat=remat)
         with torch.no_grad():
             dw, opt_state = direction(params, grads, opt_state)
             metrics = {"loss": loss.mean()}
@@ -185,7 +191,8 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
             sent = initiate_exchange_packed(packed, shift_idx, block_idx,
                                             gcfg, pack_spec, live=live)
             sent_live = sent[3] if live is not None else None
-        loss, pgrads = packed_loss_and_grad(cfg, packed, batch, pack_spec)
+        loss, pgrads = packed_loss_and_grad(cfg, packed, batch, pack_spec,
+                                            remat=remat)
         with torch.no_grad():
             dw, opt_state = direction(packed, pgrads, opt_state)
             metrics = {"loss": loss.mean()}

@@ -32,6 +32,8 @@ restored FIFO stays gated out for the join window.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 import torch
@@ -174,6 +176,40 @@ def main(argv=None):
         ap.error("--lr-schedule requires --pipelined")
 
     device = resolve_device(args.device)
+    with expandable_segments(device):
+        return _train(args, device)
+
+
+@contextlib.contextmanager
+def expandable_segments(device):
+    """The CUDA caching allocator with expandable segments while the
+    trainer runs.  A packed step's largest blocks (the ensemble the blend
+    writes, the packed gradient, the f32 logits and their gradient) are
+    freed and asked for again every step, and in fixed segments their
+    freed blocks cut up the cache until a step found no room: gemma3-1b
+    at W=4 and paligemma-3b at 18 layers ran out of the 80 GB card with
+    14-15 GiB reserved but unallocated.  The process's own setting comes
+    back after (the default, fixed segments, unless
+    ``PYTORCH_CUDA_ALLOC_CONF`` says otherwise)."""
+    if device.type != "cuda":
+        yield
+        return
+    keep = "expandable_segments:True" in os.environ.get(
+        "PYTORCH_CUDA_ALLOC_CONF", "")
+    settings = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                       None) or torch.cuda.memory._set_allocator_settings
+    torch.cuda.empty_cache()
+    settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        if not keep:
+            torch.cuda.empty_cache()
+            settings("expandable_segments:False")
+
+
+def _train(args, device):
+    """main's run, from the parsed ``args``, on ``device``."""
     set_full_fp32_precision()
     cfg = get_arch(args.arch)
     if args.reduced:

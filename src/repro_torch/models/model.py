@@ -20,6 +20,13 @@ and its decoder attends to the encoder's output; PaliGemma prepends 256
 precomputed patch embeddings (``batch["patches"]`` (W, B, P, D), not
 scaled) to the text and attends bidirectionally over them.  Only the text
 positions carry labels.
+
+Rematerialization follows the reference's ``forward(remat=True)``: with
+grad on, each full cycle of the layer pattern is one rematerialized body
+(:class:`_RematCycle`), so only the cycles' inputs stay saved and
+backward recomputes one cycle at a time; the embedding, the encoder, the
+tail layers, the final norm and ``unembed`` stay outside it, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -47,6 +54,21 @@ def _tree_stack(trees, dim: int = 0):
     leaves = [flatten_sorted(t)[0] for t in trees]
     treedef = flatten_sorted(trees[0])[1]
     return unflatten(treedef, [torch.stack(xs, dim) for xs in zip(*leaves)])
+
+
+def _init_stacked(n: int, make):
+    """``_tree_stack([make() for _ in range(n)])`` without holding the n
+    layers beside their stack: each layer is copied into its slot of the
+    preallocated stack as it is made (the same draws, in the same order),
+    so a full-size init peaks at the stack plus one layer."""
+    leaves, treedef = flatten_sorted(make())
+    out = [x.new_empty((n,) + tuple(x.shape)) for x in leaves]
+    for i in range(n):
+        if i:
+            leaves = flatten_sorted(make())[0]
+        for o, x in zip(out, leaves):
+            o[i].copy_(x)
+    return unflatten(treedef, out)
 
 
 def _tree_unstack(tree, n: int, dim: int = 0):
@@ -98,19 +120,17 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device=None,
             gen, (cfg.d_model, cfg.padded_vocab), in_axis=0, dtype=dtype,
             device=device)
     params["scan"] = {
-        f"pos{j}": _tree_stack([
-            init_layer(gen, cfg, ltype, dtype=dtype, device=device)
-            for _ in range(n_full)])
+        f"pos{j}": _init_stacked(n_full, lambda t=ltype: init_layer(
+            gen, cfg, t, dtype=dtype, device=device))
         for j, ltype in enumerate(cycle)}
     params["tail"] = {
         f"t{j}": init_layer(gen, cfg, ltype, dtype=dtype, device=device)
         for j, ltype in enumerate(tail)}
     if cfg.encoder_layers:
         params["encoder"] = {
-            "scan": _tree_stack([
-                init_layer(gen, cfg, "E", is_decoder=False, dtype=dtype,
-                           device=device)
-                for _ in range(cfg.encoder_layers)]),
+            "scan": _init_stacked(cfg.encoder_layers, lambda: init_layer(
+                gen, cfg, "E", is_decoder=False, dtype=dtype,
+                device=device)),
             "final_norm": norm_init(cfg.d_model, dtype, device)}
     return params
 
@@ -163,8 +183,84 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
     return x, positions, vision_prefix(cfg), enc_out
 
 
-def forward_w(cfg: ModelConfig, params, batch, *, return_cache=False,
-              cache_len=None):
+# cfg.remat_policy: 'full' and 'dots' rematerialize the whole cycle body,
+# 'none' keeps every activation.  'dots' is the reference's
+# dots_with_no_batch_dims_saveable, which saves the matmul outputs of an
+# unbatched loss_fn, but the reference's train step runs loss_fn under
+# jax.vmap over the workers, where every dot has the worker axis as a batch
+# dim and 'dots' saves what 'full' saves: jax.ad_checkpoint's residuals of
+# reduced qwen2.5-14b (2 layers; "not arguments" in brackets) are 28 (15)
+# 'full' and 34 (21) 'dots' unbatched, 28 (27) and 28 (27) under the vmap
+# over W = 2 (tests/test_torch_remat.py pins it).  forward_w is that
+# W-batched step, so it rematerializes the whole cycle under both.
+REMAT_POLICIES = ("full", "dots", "none")
+
+
+def _remat_on(cfg: ModelConfig, remat: bool, return_cache: bool) -> bool:
+    """Whether :func:`forward_w` rematerializes its cycles: ``remat`` set,
+    no cache returned, ``cfg.remat_policy`` not 'none', grad mode on.
+    An unknown policy raises."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"one of {REMAT_POLICIES}")
+    return (remat and not return_cache and cfg.remat_policy != "none"
+            and torch.is_grad_enabled())
+
+
+class _RematCycle(torch.autograd.Function):
+    """``body(inputs, shared)`` rematerialized, the reference's
+    ``jax.checkpoint``: the forward runs it without a graph and saves only
+    its inputs; backward reruns it from them with grad on and
+    differentiates the rerun.  ``inputs`` (a tree, flattened into the
+    Function's tensors) holds every tensor the body reads that may need a
+    gradient, but ``shared``: one that every cycle reads (the encoder's
+    output), or None.
+
+    Plain autograd sums ``shared``'s gradient in one buffer, each cycle's
+    terms in turn; a sum per cycle, then over the cycles, would differ in
+    the last bits.  So the cycles pass the running sum down in ``carry``:
+    each rerun adds its terms to the sum so far, and the last cycle that
+    backward reaches hands ``shared`` the whole sum."""
+
+    @staticmethod
+    def forward(ctx, body, treedef, carry, shared, *leaves):
+        ctx.body, ctx.treedef, ctx.carry = body, treedef, carry
+        ctx.save_for_backward(shared, *leaves)
+        return body(unflatten(treedef, leaves), shared)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ins = [t if t is None else t.detach().requires_grad_(
+            t.requires_grad) for t in ctx.saved_tensors]
+        shared, carry = ins[0], ctx.carry
+        with torch.enable_grad():
+            outs = ctx.body(unflatten(ctx.treedef, ins[1:]), shared)
+            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            if carry["grad"] is not None:
+                # made last, so the rerun's backward adds it first
+                pairs.append((shared.view_as(shared), carry["grad"]))
+        want = [t for t in ins if t is not None and t.requires_grad]
+        got = dict(zip(map(id, want), torch.autograd.grad(
+            [o for o, _ in pairs], want, [g for _, g in pairs],
+            allow_unused=True)))
+        out = [got.get(id(t)) if t is not None else None for t in ins]
+        if shared is not None and shared.requires_grad:
+            carry["grad"] = out[0]
+            carry["left"] -= 1
+            out[0] = carry["grad"] if carry["left"] == 0 else None
+        return (None, None, None, *out)
+
+
+def rematerialize(body, inputs, shared, carry):
+    """``body(inputs, shared)`` through :class:`_RematCycle`; ``carry``
+    ``{"grad": None, "left": the number of cycles}``, one for the cycles
+    of one forward."""
+    leaves, treedef = flatten_sorted(inputs)
+    return _RematCycle.apply(body, treedef, carry, shared, *leaves)
+
+
+def forward_w(cfg: ModelConfig, params, batch, *, remat=True,
+              return_cache=False, cache_len=None):
     """W worker replicas at once: params leaves (W, ...), batch["tokens"]
     (W, B, S) (and the frontend's "frames" (W, B, S_enc, D) or "patches"
     (W, B, P, D)).  Returns (logits (W, B, S', V), aux (W,)) or, with
@@ -172,28 +268,52 @@ def forward_w(cfg: ModelConfig, params, batch, *, return_cache=False,
     S' = P + S with a vision prefix, else S; aux the MoE router's
     load-balance loss summed over the layers (zeros without MoE); cache
     the reference's tree with leaves (W, n_full, B, ...) under "scan" and
-    (W, B, ...) under "tail"."""
+    (W, B, ...) under "tail".  ``remat``: rematerialize each full cycle
+    where :func:`_remat_on` says so."""
     check_supported(cfg)
     cycle, n_full, tail = cycle_structure(cfg)
     x, positions, prefix, enc_out = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((x.shape[0],), device=x.device)
     # the stacked layer axis sits behind the worker axis
-    stacks = {j: _tree_unstack(params["scan"][f"pos{j}"], n_full, dim=1)
-              for j in range(len(cycle))}
-    kw = {"enc_out": enc_out, "prefix_len": prefix,
-          "return_cache": return_cache, "cache_len": cache_len}
-    scan_caches = {j: [] for j in range(len(cycle))}
-    for i in range(n_full):
+    stacks = [_tree_unstack(params["scan"][f"pos{j}"], n_full, dim=1)
+              for j in range(len(cycle))]
+    kw = {"prefix_len": prefix, "return_cache": return_cache,
+          "cache_len": cache_len}
+
+    def cycle_body(inputs, enc_out):
+        """One full cycle: ``inputs["x"]``, ``inputs["aux"]`` through its
+        layers (``inputs["layers"]`` {str(position): params}) -> (x, aux,
+        the layers' caches)."""
+        x, aux, caches = inputs["x"], inputs["aux"], []
         for j, ltype in enumerate(cycle):
-            x, a, c = apply_layer(cfg, ltype, stacks[j][i], x, positions,
-                                  **kw)
+            x, a, c = apply_layer(cfg, ltype, inputs["layers"][str(j)], x,
+                                  positions, enc_out=enc_out, **kw)
             if a is not None:
                 aux = aux + a
-            scan_caches[j].append(c)
+            caches.append(c)
+        return x, aux, caches
+
+    remat_on = _remat_on(cfg, remat, return_cache)
+    # a tail's terms of enc_out's gradient would be summed apart from the
+    # cycles' (the last bits then not remat=False's); no arch has both,
+    # since a decoder's cycle is one layer
+    carry = {"grad": None, "left": n_full}
+    scan_caches = [[] for _ in cycle]
+    for i in range(n_full):
+        inputs = {"x": x, "aux": aux,
+                  "layers": {str(j): s[i] for j, s in enumerate(stacks)}}
+        if remat_on:
+            x, aux = rematerialize(lambda *a: cycle_body(*a)[:2], inputs,
+                                   enc_out, carry)
+        else:
+            x, aux, caches = cycle_body(inputs, enc_out)
+            for out, c in zip(scan_caches, caches):
+                out.append(c)
     tail_caches = {}
     for j, ltype in enumerate(tail):
         x, a, tail_caches[f"t{j}"] = apply_layer(
-            cfg, ltype, params["tail"][f"t{j}"], x, positions, **kw)
+            cfg, ltype, params["tail"][f"t{j}"], x, positions,
+            enc_out=enc_out, **kw)
         if a is not None:
             aux = aux + a
     _, norm = make_norm(cfg.norm_type)
@@ -202,7 +322,7 @@ def forward_w(cfg: ModelConfig, params, batch, *, return_cache=False,
     if not return_cache:
         return logits, aux
     cache = {"scan": {f"pos{j}": _tree_stack(cs, dim=1)
-                      for j, cs in scan_caches.items()},
+                      for j, cs in enumerate(scan_caches)},
              "tail": tail_caches}
     return logits, aux, cache
 
@@ -222,12 +342,12 @@ def unembed(cfg: ModelConfig, params, x):
     return logits
 
 
-def loss_fn_w(cfg: ModelConfig, params, batch):
+def loss_fn_w(cfg: ModelConfig, params, batch, *, remat=True):
     """Per-worker loss (W,): next-token cross-entropy, mean over the text
     positions (a vision prefix carries no labels), plus
     ``cfg.router_aux_weight`` times the MoE aux loss, as the reference's
-    loss_fn."""
-    logits, aux = forward_w(cfg, params, batch)
+    loss_fn (``remat`` as in :func:`forward_w`)."""
+    logits, aux = forward_w(cfg, params, batch, remat=remat)
     tokens = batch["tokens"]
     logits = logits[:, :, -tokens.shape[-1]:]
     lp = F.log_softmax(logits[:, :, :-1].float(), dim=-1)
@@ -241,17 +361,17 @@ def _one_worker(params, batch):
             {k: v[None] for k, v in batch.items()})
 
 
-def forward(cfg: ModelConfig, params, batch):
+def forward(cfg: ModelConfig, params, batch, *, remat=True):
     """One model in the reference's layout: params without a worker axis,
     batch["tokens"] (B, S) (and "frames" or "patches" without a worker
     axis).  Returns logits (B, S', V)."""
-    return forward_w(cfg, *_one_worker(params, batch))[0][0]
+    return forward_w(cfg, *_one_worker(params, batch), remat=remat)[0][0]
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, *, remat=True):
     """Next-token cross-entropy plus the MoE aux term of one model (the
     reference's loss_fn)."""
-    return loss_fn_w(cfg, *_one_worker(params, batch))[0]
+    return loss_fn_w(cfg, *_one_worker(params, batch), remat=remat)[0]
 
 
 # ---------------------------------------------------------------------------

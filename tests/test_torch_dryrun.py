@@ -125,9 +125,10 @@ def test_meta_trace_counts_as_the_cpu_step(mesh11, case):
         assert names.count("gossip_apply_w_resident") == 1
     if arch == "mamba2-370m" and shape.kind != "decode":
         n = cfg.n_layers
-        assert names.count("ssd_scan") == n
-        assert names.count("ssd_scan_bwd") == (n if shape.kind == "train"
-                                               else 0)
+        train = shape.kind == "train"
+        # a training step rematerializes: its backward reruns each forward
+        assert names.count("ssd_scan") == (2 * n if train else n)
+        assert names.count("ssd_scan_bwd") == (n if train else 0)
 
 
 @pytest.fixture
