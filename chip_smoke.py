@@ -52,7 +52,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      with ASGDConfig(use_fused=True) and the trainer's loop
      (train.run_steps), counters zeroed before and read after — B2r/B2a
      every round — its breakdown and profile; one --algo sync and one
-     --algo silent step through train.main;
+     --algo silent step through train.main; [tp] the tensor-parallel
+     pytree step (launch/tensor_parallel.py, make_train_step(mesh=)) at
+     one rank of an NCCL group, a (1, 1) ("data", "model") mesh, every
+     leaf a DTensor: full smollm-135m (W=4) and qwen2.5-14b at full width
+     cut to 2 layers (W=1), 3 steps each against the plain pytree step
+     from the same starts, batches and draws (bitwise, or else within
+     1e-5 with the gates equal), B2r/B2a once a round on its path, both
+     steps' times and peaks;
   7. [fused-update] asgd_update(use_fused=True) on one full smollm-135m
      replica at P=1 and P=4 against use_fused=False, counters zeroed
      before and read after — B3r/B3a launched;
@@ -1476,6 +1483,165 @@ def phase_pytree(torch, device):
         del res
         torch.cuda.empty_cache()
     return counts
+
+
+TP_STEPS, TP_TIMED, TP_EPS = 3, 3, 0.01
+TP_QWEN_W, TP_QWEN_LAYERS = 1, 2     # [tp]: qwen2.5-14b at full width; the
+#                                      pytree engine holds ~8 copies of the
+#                                      state in its blend (7.85 GiB a replica
+#                                      at 2 layers), so W=2 would not fit
+
+
+def tp_starts(torch, cfg, wn, device):
+    """W worker starts on the card from seed 0, made again the same for
+    each run: the model plus per-worker offsets as large as each leaf's
+    spread (seeded), which at eps TP_EPS open some gates (the CPU test's
+    starts, tests/test_torch_tensor_parallel.py)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.model import init_model
+    g = torch.Generator(device=device).manual_seed(1)
+    return tree_map(lambda x: x.expand((wn,) + tuple(x.shape)) + x.std()
+                    * torch.randn((wn,) + tuple(x.shape), device=device,
+                                  generator=g) if x.numel() > 1 else
+                    x.expand((wn,) + tuple(x.shape)).clone(),
+                    init_model(cfg, 0, device=device))
+
+
+def tp_run(torch, device, cfg, wn, seq, mesh):
+    """TP_STEPS pytree steps (eps TP_EPS, use_fused, 'leaves' p=4, delay 1)
+    of ``cfg``
+    from :func:`tp_starts`, seeded batches and draws — tensor-parallel on
+    ``mesh`` when given, else the plain single-device step — then
+    TP_TIMED steps timed one by one.  Returns the checked steps' losses
+    and gates, the params after them (CPU), their B2r/B2a launches, the
+    timed steps' median ms and the peak memory."""
+    from repro_torch import kernels as K
+    from repro_torch.core.asgd import ASGDConfig
+    from repro_torch.core.gossip import (draw_gossip_indices,
+                                         init_gossip_state)
+    from repro_torch.core.tree import flatten_sorted
+    from repro_torch.launch import tensor_parallel as TP
+    from repro_torch.launch.mesh import shard_workers
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import expandable_segments
+
+    gcfg = pytree_gcfg()
+    acfg = ASGDConfig(eps=TP_EPS, use_fused=True)
+    draws = torch.Generator().manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(2)
+    out = {"losses": [], "gates": [], "ms": []}
+    with expandable_segments(device):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = tp_starts(torch, cfg, wn, device)
+        if mesh is not None:
+            params = TP.place_params(mesh, params)
+        gossip = init_gossip_state(params, gcfg)
+        step = make_train_step(cfg, gcfg=gcfg, acfg=acfg, mesh=mesh)
+        K.reset_launch_counts()
+        for t in range(TP_STEPS + TP_TIMED):
+            tokens = torch.randint(0, cfg.vocab, (wn, 2, seq), device=device,
+                                   generator=gen)
+            if mesh is not None:
+                tokens = shard_workers(tokens, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, gossip, _, m = step(params, gossip, 0,
+                                        {"tokens": tokens},
+                                        *draw_gossip_indices(draws, gcfg))
+            torch.cuda.synchronize()
+            if t < TP_STEPS:
+                out["losses"].append(float(m["loss"]))
+                out["gates"].append(m["gate"].cpu())
+            else:
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+            if t == TP_STEPS - 1:
+                out["counts"] = K.launch_counts()
+                out["params"] = [
+                    (x.full_tensor() if mesh is not None else x).cpu()
+                    for x in flatten_sorted(params)[0]]
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del params, gossip, step
+        torch.cuda.empty_cache()
+    out["ms"] = sorted(out["ms"])[len(out["ms"]) // 2]
+    return out
+
+
+def phase_tp(torch, device):
+    """[tp]: the tensor-parallel pytree step (launch/tensor_parallel.py,
+    make_train_step(mesh=)) at one rank of an NCCL group, a (1, 1)
+    ("data", "model") mesh, every leaf a DTensor placed by
+    launch/sharding.py: full smollm-135m (W=4, batch 2, seq 128) and
+    qwen2.5-14b at full width cut to TP_QWEN_LAYERS layers (W=TP_QWEN_W,
+    batch 2, seq 128), TP_STEPS steps each against the plain pytree step
+    from the same starts, batches and draws: bitwise, or else losses
+    within rel 1e-5, params within atol 1e-5 and rel 1e-5, gates equal;
+    B2r/B2a launched once a round on the tensor-parallel path, counters
+    zeroed before and read after; each path's step time (median of TP_TIMED) and peak memory.
+    Returns the tensor-parallel path's launch counts."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.gossip_blend.kernel import APPLY_W, REDUCE_W
+    from repro_torch.launch import mesh as MM
+
+    runs = (("smollm-135m", get_arch("smollm-135m"), W),
+            ("qwen2.5-14b", dataclasses.replace(
+                get_arch("qwen2.5-14b"), n_layers=TP_QWEN_LAYERS),
+             TP_QWEN_W))
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        MM.init_ranks(str(pathlib.Path(tmp) / "store"), 0, 1, device)
+        try:
+            mesh = MM.make_host_mesh(1, 1, device=device)
+            for arch, cfg, wn in runs:
+                tp = tp_run(torch, device, cfg, wn, 128, mesh)
+                plain = tp_run(torch, device, cfg, wn, 128, None)
+                bitwise = (tp["losses"] == plain["losses"] and all(
+                    torch.equal(a, b)
+                    for a, b in zip(tp["params"], plain["params"])))
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(tp["params"], plain["params"]))
+                rel = max(abs(a - b) / abs(b)
+                          for a, b in zip(tp["losses"], plain["losses"]))
+                gates = all(torch.equal(a, b)
+                            for a, b in zip(tp["gates"], plain["gates"]))
+                if not bitwise and not (rel <= 1e-5 and gates and all(
+                        torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+                        for a, b in zip(tp["params"], plain["params"]))):
+                    raise AssertionError(
+                        f"[tp] {arch}: tensor-parallel vs plain step: loss "
+                        f"rel {rel:.3e}, gates equal {gates}, max |param "
+                        f"diff| {err:.3e}")
+                for name in (REDUCE_W, APPLY_W):
+                    want = TP_STEPS
+                    if tp["counts"].get(name, 0) != want:
+                        raise AssertionError(
+                            f"[tp] {arch}: {name} launched "
+                            f"{tp['counts'].get(name, 0)} times in "
+                            f"{TP_STEPS} rounds, want {want}: "
+                            f"{tp['counts']}")
+                    total[name] = total.get(name, 0) + tp["counts"][name]
+                n_good = [float(g.sum()) for g in tp["gates"]]
+                match = ("bitwise" if bitwise
+                         else "within rel/atol 1e-5, gates equal")
+                log(f"[tp] {arch} (n_layers {cfg.n_layers}, W={wn}, batch "
+                    f"2, seq 128) on a {dist.get_backend()} "
+                    f"{tuple(mesh.shape)} {mesh.mesh_dim_names} mesh: "
+                    f"{TP_STEPS} steps {match} the plain pytree step (losses "
+                    f"{[round(l, 6) for l in tp['losses']]}, max |param "
+                    f"diff| {err:.3e}, n_good {n_good}); launches on the "
+                    f"tensor-parallel path {tp['counts']}; step "
+                    f"{tp['ms']:.2f} ms vs plain {plain['ms']:.2f} ms "
+                    f"(median of {TP_TIMED}, after the checked steps); "
+                    f"peak {tp['peak_gib']:.2f} GiB vs "
+                    f"{plain['peak_gib']:.2f} GiB")
+                del tp, plain
+        finally:
+            dist.destroy_process_group()
+    return total
 
 
 def pytree_breakdown(torch, device, cfg, state, gcfg, acfg, step):
@@ -3901,6 +4067,8 @@ def main() -> int:
         phase_ckpt(torch, path)
         phase_elastic(torch, path, main_s)
     counts.update(phase_pytree(torch, device))
+    for name, n in phase_tp(torch, device).items():
+        counts[name] += n
     counts.update(phase_fused_update(torch, device))
     kres.update(phase_kmeans_kernels(torch, device))
     counts.update(phase_parzen_blend(torch, device))

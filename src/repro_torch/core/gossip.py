@@ -388,7 +388,8 @@ def _blend(w_blk, ext_blk, g_blk, gate, acfg: ASGDConfig):
 
 
 def _fused_blend(params, grads, ext, cfg: GossipConfig, acfg: ASGDConfig,
-                 groups=None, ext_idx=None, gate_scale=None):
+                 groups=None, ext_idx=None, gate_scale=None, *, mesh=None,
+                 reduce_groups=None):
     """Gate + blend through the worker-batched kernels B2r/B2a (both modes).
 
     Each round packs params, grads and ext once into the plain
@@ -397,16 +398,22 @@ def _fused_blend(params, grads, ext, cfg: GossipConfig, acfg: ASGDConfig,
     one buffer.  'leaves' mode (groups given, p > 1) restricts the blend to
     partition ``ext_idx`` with one worker-shared (R, LANE) mask
     (packing.pack_group_mask); 'rows' mode passes block trees and no mask.
-    Returns (blended tree, gate (W,))."""
+    ``mesh``: the DeviceMesh ``cfg.gate_psum_axes`` name dims of.
+    ``reduce_groups``: group ids for the gate sums alone, where they differ
+    from ``groups`` (a leaf whose terms another rank adds has an id no
+    round draws).  Returns (blended tree, gate (W,))."""
     spec = pack_spec_w(params, block_rows=cfg.fused_block_rows)
     w3 = pack_w(params, spec)
     mask2 = (pack_group_mask(groups, ext_idx, spec, device=w3.device)
              if groups is not None and cfg.partial_blocks > 1 else None)
+    reduce2 = (None if reduce_groups is None else
+               pack_group_mask(reduce_groups, ext_idx, spec, device=w3.device))
     out3, gates = gossip_blend_worker_batched(
         w3, pack_w(grads, spec), pack_w(ext, spec)[:, None], acfg.eps,
-        mask2d=mask2, use_parzen=acfg.use_parzen, elastic=acfg.elastic,
-        elastic_alpha=acfg.elastic_alpha,
-        psum_axes=cfg.gate_psum_axes or None, gate_scale=gate_scale)
+        mask2d=mask2, reduce_mask2d=reduce2, use_parzen=acfg.use_parzen,
+        elastic=acfg.elastic, elastic_alpha=acfg.elastic_alpha,
+        psum_axes=cfg.gate_psum_axes or None, mesh=mesh,
+        gate_scale=gate_scale)
     return unpack_w(out3, spec), gates[:, 0]
 
 

@@ -163,6 +163,7 @@ def gossip_blend(w, exts, dw, eps, *, use_parzen: bool = True,
 
 
 def gossip_blend_worker_batched(w3d, dw3d, ext4d, eps, *, mask2d=None,
+                                reduce_mask2d=None,
                                 use_parzen: bool = True,
                                 elastic: bool = False,
                                 elastic_alpha: float = 0.5, psum_axes=None,
@@ -172,7 +173,10 @@ def gossip_blend_worker_batched(w3d, dw3d, ext4d, eps, *, mask2d=None,
     w3d, dw3d: (W, R, LANE) f32; ext4d: (W, P, R, LANE) f32; mask2d:
     optional (R, LANE) 0/1 partition mask shared by every worker — masked
     positions take the plain SGD step and add nothing to any gate term.
-    gate_scale: optional scalar or (W,) validity multiplier on the gates
+    reduce_mask2d: optional (R, LANE) mask the gate sums (B2r) take in
+    place of ``mask2d`` — positions whose terms another rank of
+    ``psum_axes`` already adds (a leaf held whole on every ``model``
+    rank, launch/tensor_parallel.py) are 0 in it.  gate_scale: optional scalar or (W,) validity multiplier on the gates
     (the staleness guard).  psum_axes: mesh dim name(s) of ``mesh`` (a
     DeviceMesh, launch/mesh.py) to sum the (W, P, 3) gate accumulator
     over, in rank order — when the state's non-worker dims are sharded
@@ -184,7 +188,8 @@ def gossip_blend_worker_batched(w3d, dw3d, ext4d, eps, *, mask2d=None,
     if p == 0:
         return (w3d - eps * dw3d,
                 torch.zeros((wn, 0), dtype=torch.float32, device=w3d.device))
-    acc = gossip_reduce_w(w3d, dw3d, ext4d, mask2d)
+    acc = gossip_reduce_w(w3d, dw3d, ext4d,
+                          mask2d if reduce_mask2d is None else reduce_mask2d)
     if psum_axes:
         acc = _sum_over_mesh(acc, psum_axes, mesh)
     gates = _scale_gates(gossip_gates(acc, eps, use_parzen=use_parzen),

@@ -34,9 +34,13 @@ DTensor placements: ``Shard(d)`` on every mesh dim named at tensor dim
 shards dim 0 over both, pod-major — the order ``launch/mesh.py`` gives
 the worker group.
 
-The port runs none of these layouts yet: its regions (``launch/mesh.py``)
-replicate every worker's slice over ``model``.  The specs say where a
-tensor-parallel run would put each leaf, and what a device would hold.
+The pytree train step of the dense archs runs these layouts
+(``launch/tensor_parallel.py``: each rank's worker slice, every leaf a
+DTensor on the mesh's ``model`` dim, ``Shard(d)`` where the spec names
+``model`` at d); the packed engines' regions (``launch/mesh.py``) split
+only the worker axis and replicate it over ``model``, as the reference
+shards its packed ensembles.  :func:`placed_bytes` is what a device holds
+of a leaf, the dry-run's and the tensor-parallel step's alike.
 """
 from __future__ import annotations
 

@@ -88,7 +88,7 @@ def tree_loss_and_grad(cfg: ModelConfig, params, batch, *, remat=True):
 def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
                     inner="sgd", gcfg: GossipConfig | None = None,
                     acfg: ASGDConfig | None = None, remat=True,
-                    pipelined=False, lr_schedule=None):
+                    pipelined=False, lr_schedule=None, mesh=None):
     """Returns step(params, gossip, opt_state, batch, shift_idx, block_idx,
     live=None) -> (params, gossip, opt_state, metrics).
 
@@ -108,6 +108,11 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     per-round lr operand.  remat: every engine's forward checkpoints each
     full cycle of the layer pattern per ``cfg.remat_policy``
     (models.model.forward_w), the reference's default.
+    mesh: a ``("data", "model")`` DeviceMesh (the reference's
+    ``spmd_axes=``): the pytree step on this rank's worker slice, every
+    leaf a DTensor placed over ``model`` by launch/sharding.py
+    (launch/tensor_parallel.py: place_params, TensorParallelStep, whose
+    scope check raises for what it does not carry).
     Raises NotImplementedError for an arch the port does not carry
     (models.blocks.check_supported); 'S' layers train through the SSD
     scan's backward (kernel B5b on the card), so a batch's seq must be a
@@ -140,6 +145,13 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     if lr_schedule is not None and not pipelined:
         raise ValueError(
             "lr_schedule= is only wired into the pipelined engine")
+    if mesh is not None:
+        from .tensor_parallel import TensorParallelStep, check_scope
+        check_scope(cfg, algo=algo, inner=inner, gcfg=gcfg, acfg=acfg,
+                    pack_spec=pack_spec, pipelined=pipelined,
+                    lr_schedule=lr_schedule)
+        return TensorParallelStep(cfg, mesh, gcfg=gcfg, acfg=acfg,
+                                  remat=remat)
 
     def direction(params, grads, opt_state):
         """(dw, new_opt_state): w - eps*dw is the inner-optimizer step

@@ -14,8 +14,12 @@ as the reference's ``_attend_full`` does; shorter ones the dense form
 under the encoder's all-ones, the prefix, the sliding or the causal mask.
 The sharding hints (``models/hints.py constrain``) stand at the
 reference's points under its conditions (``cfg.attn_batch_shard``,
-``cfg.seq_parallel``); on plain tensors they return their argument, so
-no value changes.  Remat changes none either and is left out.
+``cfg.seq_parallel``); under ``seq_parallel`` each matmul segment's
+input is also ``gathered`` (``_segment_in``) and its output
+reduce-scattered back to the sequence-sharded stream (``_segment_out``),
+where XLA puts them for the reference.  On plain tensors (or with no
+mesh ambient) every hint returns its argument, so no value changes.
+Remat changes none either and is left out.
 """
 from __future__ import annotations
 
@@ -23,11 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .common import (AttnSpec, _gqa_expand, _project_qkv, attention_decode,
-                     attention_dense, attention_flash, causal_mask,
-                     init_attention, init_kv_cache, make_norm, prefix_mask,
-                     sliding_mask)
-from .hints import WORKERS, constrain
+from .common import (AttnSpec, _gqa_expand, _project_qkv, attend_heads,
+                     attention_decode, attention_dense, attention_flash,
+                     causal_mask, init_attention, init_kv_cache, make_norm,
+                     prefix_mask, sliding_mask)
+from .hints import WORKERS, constrain, gathered
 from .mlp import apply_mlp, apply_mlp_nonglu, init_mlp, init_mlp_nonglu
 from .moe import apply_moe, apply_moe_decode, init_moe
 from .rglru import (apply_rglru, apply_rglru_decode, init_rglru,
@@ -176,8 +180,8 @@ def _attend_full(cfg: ModelConfig, spec, p_attn, h, positions, ltype,
     if batch_shard:
         h = constrain(h, WORKERS, "model", None, None)
     if seq >= FLASH_MIN_SEQ and seq % 512 == 0:
-        out = attention_flash(
-            p_attn, spec, h, positions, window=window,
+        out = attend_heads(
+            attention_flash, p_attn, spec, h, positions, window=window,
             prefix_len=prefix_len if ltype == "G" or window is None
             else None)
         if batch_shard:
@@ -191,7 +195,7 @@ def _attend_full(cfg: ModelConfig, spec, p_attn, h, positions, ltype,
         mask = sliding_mask(positions, positions, window)
     else:
         mask = causal_mask(positions, positions)
-    return attention_dense(p_attn, spec, h, positions, mask)
+    return attend_heads(attention_dense, p_attn, spec, h, positions, mask)
 
 
 def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
@@ -217,13 +221,13 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
         # sequence parallelism: the residual stream's S axis over `model`
         # between the matmul segments
         x = constrain(x, WORKERS, None, "model", None)
-    h = norm(p["ln1"], x)
+    h = _segment_in(cfg, norm(p["ln1"], x))
     cache = None
     if ltype in ("G", "L", "E"):
         seq = x.shape[2]
         spec = attn_spec(cfg)
-        out = _attend_full(cfg, spec, p["attn"], h, positions, ltype,
-                           prefix_len)
+        out = _segment_out(cfg, _attend_full(cfg, spec, p["attn"], h,
+                                             positions, ltype, prefix_len))
         if return_cache:
             # recompute K/V once for the cache, as the reference does
             _, k, v = _project_qkv(p["attn"], spec, h, positions)
@@ -281,8 +285,29 @@ def _ffn(cfg: ModelConfig, p, x, norm):
                            dispatch_groups=cfg.moe_dispatch_groups)
         return x + h, aux
     if "mlp" in p:
-        x = x + _mlp(cfg, p["mlp"], norm(p["ln2"], x))
+        x = x + _segment_out(cfg, _mlp(cfg, p["mlp"],
+                                       _segment_in(cfg, norm(p["ln2"], x))))
     return x, None
+
+
+def _segment_in(cfg: ModelConfig, h):
+    """A matmul segment's input under ``cfg.seq_parallel``: the
+    sequence-sharded stream all-gathered whole (models/hints.py
+    ``gathered``), as XLA does for the reference; DTensor's einsum would
+    flatten the sharded sequence into the batch, which torch 2.11
+    refuses."""
+    return gathered(h) if cfg.seq_parallel else h
+
+
+def _segment_out(cfg: ModelConfig, out):
+    """A matmul segment's output under ``cfg.seq_parallel``: its sum over
+    ``model`` (a ``Partial``) reduce-scattered onto the sequence-sharded
+    stream, as XLA does for the reference.  Backward all-gathers the
+    gradient whole (a ``Partial`` source takes a ``Replicate`` gradient)
+    before the einsum's own."""
+    if not cfg.seq_parallel:
+        return out
+    return constrain(out, WORKERS, None, "model", None)
 
 
 def _mlp(cfg: ModelConfig, p_mlp, h):

@@ -24,6 +24,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.tree import tree_map
+
 # ---------------------------------------------------------------------------
 # initializers (single model, no worker axis) — draw from an explicit
 # torch.Generator; the reference's jax.random draws cannot be replayed, the
@@ -281,6 +283,54 @@ def attention_flash(params, spec: AttnSpec, x, positions, *,
         outs.append(out.to(x.dtype))
     out = torch.cat(outs, dim=3).permute(0, 1, 3, 2, 4)   # (W,B,S,H,Dh)
     return torch.einsum("wbqhk,whkd->wbqd", out, params["wo"])
+
+
+# the dim of the heads in each head-indexed leaf of an attention's params
+# (after the worker axis): wq/wk/wv (W, D, H|KV, Dh), wo (W, H, Dh, D),
+# the biases (W, H|KV, Dh)
+_HEAD_DIMS = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "bq": 1, "bk": 1, "bv": 1}
+
+
+def head_shards(p_attn):
+    """The 1-D mesh that shards every head-indexed leaf of ``p_attn`` (DTensor
+    leaves, launch/tensor_parallel.py) along its heads, or None."""
+    from torch.distributed.tensor import DTensor, Shard
+    wq = p_attn["wq"]
+    if not isinstance(wq, DTensor) or wq.device_mesh.ndim != 1:
+        return None
+    for name, dim in _HEAD_DIMS.items():
+        if name in p_attn and p_attn[name].placements != (Shard(dim),):
+            return None
+    return wq.device_mesh
+
+
+def attend_heads(fn, p_attn, spec: AttnSpec, x, *args, **kw):
+    """``fn(p_attn, spec, x, *args, **kw)``, an attention that projects x,
+    attends per head and projects out.  Where :func:`head_shards` finds
+    its heads sharded, each rank runs ``fn`` on its own heads — the
+    leaves' local shards, the spec's head counts divided by the mesh size,
+    x gathered whole — and the output is the ``Partial`` sum of the ranks'
+    parts, as the output projection sums over the heads: the same
+    function, since heads are independent.  Each part's gradient is
+    handed back as a ``Partial`` where a whole tensor fed every rank (x,
+    the qk-norm scales) and as the shard's own on the sharded leaves."""
+    mesh = head_shards(p_attn)
+    if mesh is None:
+        return fn(p_attn, spec, x, *args, **kw)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    def local(t):
+        if t.placements == (Replicate(),):
+            return t.to_local(grad_placements=(Partial(),))
+        return t.to_local()
+    m = mesh.size()
+    x = x.redistribute(mesh, (Replicate(),))
+    part = fn(tree_map(local, p_attn),
+              dataclasses.replace(spec, n_heads=spec.n_heads // m,
+                                  n_kv_heads=spec.n_kv_heads // m),
+              local(x), *args, **kw)
+    # backward keeps the replicated gradient whole on each rank
+    return DTensor.from_local(part, mesh, (Partial(),))
 
 
 def attention_decode(params, spec: AttnSpec, x, pos: int, cache, *,

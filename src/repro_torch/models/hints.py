@@ -6,7 +6,9 @@ which replicate each worker's slice over ``model``), and (b) on DTensors
 with a ``DeviceMesh`` ambient.  ``constrain`` redistributes a DTensor to a
 spec's placements only when a mesh is ambient (``launch/mesh.py
 mesh_context`` sets it) and only with axis names that exist on it;
-otherwise it returns its argument itself.
+otherwise it returns its argument itself.  ``gathered`` is the
+all-gather at a matmul boundary of the sequence-parallel stream, a no-op
+in the same cases.
 
 The reference's model runs under ``vmap`` over the worker axis, which pads
 a spec with the worker entry; the port's model carries that axis as dim 0
@@ -70,3 +72,18 @@ def constrain(x, *spec):
         return x
     from ..launch.sharding import placements
     return x.redistribute(mesh, placements(mesh, clean))
+
+
+def gathered(x):
+    """``x`` all-gathered to ``Replicate()`` under an ambient mesh when it
+    is a DTensor sharded there; ``x`` itself otherwise.  The all-gather
+    XLA inserts at a matmul boundary of the sequence-parallel stream
+    (the reference's seq_parallel), written out: DTensor's einsum would
+    flatten the sharded sequence dim into the batch, which it refuses."""
+    if ambient_mesh() is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or all(isinstance(p, Replicate)
+                                         for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, (Replicate(),) * x.device_mesh.ndim)

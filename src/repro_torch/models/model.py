@@ -40,6 +40,7 @@ from ..core.tree import flatten_sorted, tree_map, unflatten
 from .blocks import (apply_layer, apply_layer_decode, check_supported,
                      init_layer, init_layer_cache)
 from .common import dense_init, embed_init, make_norm
+from .hints import gathered
 
 
 def cycle_structure(cfg: ModelConfig):
@@ -149,11 +150,51 @@ def run_encoder(cfg: ModelConfig, params, frames):
     return norm(enc["final_norm"], x)
 
 
+def _vocab_shards(table):
+    """The 1-D mesh a ``DTensor`` table (W, V, D) shards its vocab dim
+    over, or None (a plain tensor, or another placement)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if (isinstance(table, DTensor) and table.device_mesh.ndim == 1
+            and table.placements == (Shard(1),)):
+        return table.device_mesh
+    return None
+
+
+def _masked_lookup(table, tokens, mesh):
+    """The lookup of a vocab-sharded table, as ``F.embedding`` does it:
+    each rank reads the tokens that fall in its rows of the vocab, zeros
+    for the rest, and the sum of the ranks' parts (a ``Partial``
+    placement, reduced to ``Replicate``) is the table's rows.  Every
+    position is non-zero on one rank only, so the sum is exact.  Backward
+    hands each rank the whole gradient of the sum, which the index
+    scatters into its own rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    local = table.to_local()
+    rows = local.shape[1]
+    idx = tokens - rows * mesh.get_local_rank()
+    hit = (idx >= 0) & (idx < rows)
+    widx = torch.arange(tokens.shape[0], device=tokens.device)[:, None, None]
+    part = local[widx, torch.where(hit, idx, 0)]
+    part = torch.where(hit[..., None], part, torch.zeros((), dtype=part.dtype,
+                                                         device=part.device))
+    # backward keeps the replicated gradient whole on each rank (a
+    # redistribute to Partial in backward is the identity)
+    return DTensor.from_local(part, mesh, (Partial(),)).redistribute(
+        mesh, (Replicate(),))
+
+
 def embed_tokens(cfg: ModelConfig, params, tokens):
     """tokens (W, B, S) -> (W, B, S, D) from each worker's own table,
-    times sqrt(d_model) for the gemma family (``cfg.scale_embeddings``)."""
-    widx = torch.arange(tokens.shape[0], device=tokens.device)[:, None, None]
-    x = params["embed"][widx, tokens]
+    times sqrt(d_model) for the gemma family (``cfg.scale_embeddings``).
+    A table whose vocab is sharded over ``model`` (launch/tensor_parallel
+    .py) takes the masked lookup (:func:`_masked_lookup`)."""
+    mesh = _vocab_shards(params["embed"])
+    if mesh is not None:
+        x = _masked_lookup(params["embed"], tokens, mesh)
+    else:
+        widx = torch.arange(tokens.shape[0],
+                            device=tokens.device)[:, None, None]
+        x = params["embed"][widx, tokens]
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -318,6 +359,8 @@ def forward_w(cfg: ModelConfig, params, batch, *, remat=True,
             aux = aux + a
     _, norm = make_norm(cfg.norm_type)
     x = norm(params["final_norm"], x)
+    if cfg.seq_parallel:
+        x = gathered(x)          # the matmul boundary (blocks._segment_in)
     logits = unembed(cfg, params, x)
     if not return_cache:
         return logits, aux

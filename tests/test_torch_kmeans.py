@@ -136,7 +136,20 @@ def test_gradient_step_descends_and_batch_converges_near_truth():
     assert float(tk.ground_truth_error(w, c)) < 0.1
 
 
-def test_examples_run_on_the_cpu(capsys):
+@pytest.fixture
+def one_thread():
+    """One torch thread: the examples' rounds are thousands of small ops,
+    and under the suite's six processes torch's intra-op pool oversubscribes
+    the cores (the test took 777.65 s in a suite run, 12.8 s alone; one
+    thread takes kmeans_scaling from 195.3 to 34.3 s beside six busy
+    processes), as tests/test_torch_qwen.py's fixture avoids."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_examples_run_on_the_cpu(capsys, one_thread):
     from repro_torch.examples import kmeans_scaling, quickstart
     out = quickstart.main(["--device", "cpu", "--m", "4000"])
     assert np.isfinite(out["asgd"]["error_first"])

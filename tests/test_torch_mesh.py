@@ -173,7 +173,8 @@ def blend_inputs(inputs, params, grads, packed, pdw, spec):
     b1 = jax.jit(lambda e, sc: gossip_blend_w_resident(
         packed, pdw, e[:, None], rr, R.EPS, block_rows=R.BLOCK_ROWS,
         ext_scales=None if sc is None else sc[:, None]))
-    return {"smw": b2(None), "smw_mask": b2(mask), "psum_b2": b2(mask),
+    smw_mask = b2(mask)    # the psum case's reference too: one call
+    return {"smw": b2(None), "smw_mask": smw_mask, "psum_b2": smw_mask,
             "psum_b1": b1(jnp.asarray(res_ext), None),
             "psum_b1_int8": b1(q, s)}
 

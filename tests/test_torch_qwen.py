@@ -51,7 +51,8 @@ from repro_torch.launch.steps import (init_inner_state, make_train_step,
 from repro_torch.models import model as TM
 from test_torch_serve import (BATCH, PROMPT, STEPS, assert_cache_near,
                               assert_near, jb, tb)
-from test_torch_train_moe import GOSSIP, run_both, worker_params
+from test_torch_train_moe import (GOSSIP, reference_init, run_both,
+                                  worker_params)
 
 ARCHS = ["qwen2.5-14b", "qwen3-14b"]
 PERTURBED = ("bq", "bk", "bv", "q_norm", "k_norm")
@@ -87,8 +88,7 @@ def perturbed_params(arch, seed=0):
     """(reference cfg, reference params, port params), both from one
     perturbed numpy tree."""
     cfg = jget_arch(arch).reduced()
-    tree = perturb(jax.tree.map(np.asarray,
-                                JM.init_model(cfg, jax.random.key(seed))),
+    tree = perturb(jax.tree.map(np.asarray, reference_init(cfg, seed)),
                    seed + 10)
     return cfg, jax.tree.map(jnp.asarray, tree), params_from_numpy(tree)
 

@@ -10,6 +10,8 @@ reference step by step in test_optimizers_and_lr_schedule_match_reference
 only: its update divides by sqrt(v) + 1e-8, so on gradients near 1e-8 it
 amplifies last-bit differences into O(lr) ones.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,11 +45,19 @@ def jax_draws(key, cfg):
             int(jax.random.randint(k_blk, (), 0, cfg.partial_blocks)))
 
 
+@functools.lru_cache
+def reference_init(seed):
+    """The reference's reduced smollm-135m params from ``seed``, made once
+    for every case that starts from them (jax arrays are immutable)."""
+    return JM.init_model(jget_arch("smollm-135m").reduced(),
+                         jax.random.key(seed))
+
+
 @pytest.mark.parametrize("inner", ["sgd", "momentum"])
 def test_pipelined_int8_slice_matches_reference(inner):
     cfg = jget_arch("smollm-135m").reduced()
     key = jax.random.key(0)
-    params = JM.init_model(cfg, key)
+    params = reference_init(0)
     # workers start from one model, as the trainers do
     wnp = jax.tree.map(
         lambda x: np.broadcast_to(np.asarray(x), (W,) + x.shape).copy(),
@@ -158,8 +168,7 @@ def test_silent_packed_step_is_local_sgd():
     cfg = get_arch("smollm-135m").reduced()
     params = params_from_numpy(jax.tree.map(
         lambda x: np.broadcast_to(np.asarray(x), (2,) + x.shape).copy(),
-        JM.init_model(jget_arch("smollm-135m").reduced(),
-                      jax.random.key(1))))
+        reference_init(1)))
     spec = pack_spec_w(params, block_rows=64)
     packed = pack_w(params, spec)
     gcfg = tg.GossipConfig(shifts=(1,), partial_mode="rows")

@@ -21,6 +21,8 @@ capacity 2 an expert, so the reference drops (token, slot) pairs here,
 and the port drops the same ones (a different drop would move the loss
 far past these tolerances).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,6 +62,13 @@ def jax_draws(key, cfg):
             int(jax.random.randint(k_blk, (), 0, cfg.partial_blocks)))
 
 
+@functools.lru_cache
+def reference_init(cfg, seed=0):
+    """The reference's params of ``cfg`` from ``seed``, made once for every
+    test that starts from them (jax arrays are immutable)."""
+    return JM.init_model(cfg, jax.random.key(seed))
+
+
 def worker_params(cfg, w=W):
     """The reference's init for w workers, as numpy, each worker's leaves
     offset by its own seeded noise."""
@@ -67,7 +76,7 @@ def worker_params(cfg, w=W):
     return jax.tree.map(
         lambda x: (np.asarray(x)[None] + START_NOISE * rng.standard_normal(
             (w,) + x.shape)).astype(np.float32),
-        JM.init_model(cfg, jax.random.key(0)))
+        reference_init(cfg))
 
 
 def test_reduced_configs_have_experts():

@@ -10,6 +10,8 @@ admitted-message count n_good and the gates exactly.  With delay 1 the
 first round is gated out by the staleness guard and the second blends the
 buffered block, so 2 steps show the whole engine.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,14 @@ def jax_draws(key, cfg):
             int(jax.random.randint(k_blk, (), 0, cfg.partial_blocks)))
 
 
+@functools.lru_cache
+def reference_init():
+    """The reference's reduced smollm-135m params, made once for the four
+    cases (jax arrays are immutable)."""
+    return JM.init_model(jget_arch("smollm-135m").reduced(),
+                         jax.random.key(0))
+
+
 @pytest.mark.parametrize("algo,inner,fused", [
     ("asgd", "sgd", False), ("asgd", "momentum", True),
     ("silent", "sgd", False), ("sync", "momentum", False)])
@@ -47,7 +57,7 @@ def test_pytree_step_matches_reference(algo, inner, fused):
     key = jax.random.key(0)
     wnp = jax.tree.map(
         lambda x: np.broadcast_to(np.asarray(x), (W,) + x.shape).copy(),
-        JM.init_model(cfg, key))
+        reference_init())
     kw = dict(shifts=(1, 2), partial_blocks=4, delay=1)
     jcfg, tcfg = jg.GossipConfig(**kw), tg.GossipConfig(**kw)
     jacfg = jasgd.ASGDConfig(eps=0.05, use_fused=fused)
