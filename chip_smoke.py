@@ -55,8 +55,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      --algo silent step through train.main; [tp] the tensor-parallel
      pytree step (launch/tensor_parallel.py, make_train_step(mesh=)) at
      one rank of an NCCL group, a (1, 1) ("data", "model") mesh, every
-     leaf a DTensor: full smollm-135m (W=4) and qwen2.5-14b at full width
-     cut to 2 layers (W=1), 3 steps each against the plain pytree step
+     leaf a DTensor: full smollm-135m (W=4), qwen2.5-14b at full width
+     cut to 2 layers (W=1), gemma3-1b at full width cut to one 6-layer
+     cycle (W=2, seq 1024), paligemma-3b at full width cut to 2 layers
+     (W=2, 256 patches) and full whisper-tiny (W=4, 1500 frames), 3
+     steps each against the plain pytree step
      from the same starts, batches and draws (bitwise, or else within
      1e-5 with the gates equal), B2r/B2a once a round on its path, both
      steps' times and peaks;
@@ -1486,10 +1489,18 @@ def phase_pytree(torch, device):
 
 
 TP_STEPS, TP_TIMED, TP_EPS = 3, 3, 0.01
-TP_QWEN_W, TP_QWEN_LAYERS = 1, 2     # [tp]: qwen2.5-14b at full width; the
-#                                      pytree engine holds ~8 copies of the
-#                                      state in its blend (7.85 GiB a replica
-#                                      at 2 layers), so W=2 would not fit
+# [tp]'s full-width runs: (arch, layers (None: all), W, seq).  qwen2.5-14b
+# 2 layers at W=1: the pytree engine holds ~8 copies of the state in its
+# blend (7.85 GiB a replica at 2 layers), so W=2 would not fit; gemma3-1b
+# one (L x 5, G) cycle at seq 1024, where its window of 512 binds;
+# paligemma-3b 2 layers (3.0 GiB a replica) after its 256 patches;
+# whisper-tiny whole, on 1500 frames
+TP_RUNS = (("smollm-135m", None, W, 128),
+           ("qwen2.5-14b", 2, 1, 128),
+           ("gemma3-1b", 6, 2, 1024),
+           ("paligemma-3b", 2, 2, 128),
+           ("whisper-tiny", None, W, 128))
+TP_STUB = {"audio": "frames", "vision": "patches"}
 
 
 def tp_starts(torch, cfg, wn, device):
@@ -1529,6 +1540,8 @@ def tp_run(torch, device, cfg, wn, seq, mesh):
     acfg = ASGDConfig(eps=TP_EPS, use_fused=True)
     draws = torch.Generator().manual_seed(0)
     gen = torch.Generator(device=device).manual_seed(2)
+    stub = TP_STUB.get(cfg.frontend)
+    stub_len = cfg.encoder_seq if cfg.frontend == "audio" else cfg.prefix_len
     out = {"losses": [], "gates": [], "ms": []}
     with expandable_segments(device):
         torch.cuda.empty_cache()
@@ -1540,14 +1553,18 @@ def tp_run(torch, device, cfg, wn, seq, mesh):
         step = make_train_step(cfg, gcfg=gcfg, acfg=acfg, mesh=mesh)
         K.reset_launch_counts()
         for t in range(TP_STEPS + TP_TIMED):
-            tokens = torch.randint(0, cfg.vocab, (wn, 2, seq), device=device,
-                                   generator=gen)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (wn, 2, seq),
+                                             device=device, generator=gen)}
+            if stub:
+                # the stub frontend's input at 0.1 x N(0, 1)
+                batch[stub] = 0.1 * torch.randn(
+                    (wn, 2, stub_len, cfg.d_model), device=device,
+                    generator=gen)
             if mesh is not None:
-                tokens = shard_workers(tokens, mesh)
+                batch = {k: shard_workers(v, mesh) for k, v in batch.items()}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            params, gossip, _, m = step(params, gossip, 0,
-                                        {"tokens": tokens},
+            params, gossip, _, m = step(params, gossip, 0, batch,
                                         *draw_gossip_indices(draws, gcfg))
             torch.cuda.synchronize()
             if t < TP_STEPS:
@@ -1571,14 +1588,14 @@ def phase_tp(torch, device):
     """[tp]: the tensor-parallel pytree step (launch/tensor_parallel.py,
     make_train_step(mesh=)) at one rank of an NCCL group, a (1, 1)
     ("data", "model") mesh, every leaf a DTensor placed by
-    launch/sharding.py: full smollm-135m (W=4, batch 2, seq 128) and
-    qwen2.5-14b at full width cut to TP_QWEN_LAYERS layers (W=TP_QWEN_W,
-    batch 2, seq 128), TP_STEPS steps each against the plain pytree step
-    from the same starts, batches and draws: bitwise, or else losses
-    within rel 1e-5, params within atol 1e-5 and rel 1e-5, gates equal;
-    B2r/B2a launched once a round on the tensor-parallel path, counters
-    zeroed before and read after; each path's step time (median of TP_TIMED) and peak memory.
-    Returns the tensor-parallel path's launch counts."""
+    launch/sharding.py, each of TP_RUNS at full width (the layers, W and
+    seq it names; batch 2; the frontend's patches or frames beside the
+    tokens), TP_STEPS steps each against the plain pytree step from the
+    same starts, batches and draws: bitwise, or else losses within rel
+    1e-5, params within atol 1e-5 and rel 1e-5, gates equal; B2r/B2a
+    launched once a round on the tensor-parallel path, counters zeroed
+    before and read after; each path's step time (median of TP_TIMED) and
+    peak memory.  Returns the tensor-parallel path's launch counts."""
     import dataclasses
 
     import torch.distributed as dist
@@ -1587,18 +1604,17 @@ def phase_tp(torch, device):
     from repro_torch.kernels.gossip_blend.kernel import APPLY_W, REDUCE_W
     from repro_torch.launch import mesh as MM
 
-    runs = (("smollm-135m", get_arch("smollm-135m"), W),
-            ("qwen2.5-14b", dataclasses.replace(
-                get_arch("qwen2.5-14b"), n_layers=TP_QWEN_LAYERS),
-             TP_QWEN_W))
+    runs = [(arch, get_arch(arch) if layers is None else
+             dataclasses.replace(get_arch(arch), n_layers=layers), wn, seq)
+            for arch, layers, wn, seq in TP_RUNS]
     total = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
         MM.init_ranks(str(pathlib.Path(tmp) / "store"), 0, 1, device)
         try:
             mesh = MM.make_host_mesh(1, 1, device=device)
-            for arch, cfg, wn in runs:
-                tp = tp_run(torch, device, cfg, wn, 128, mesh)
-                plain = tp_run(torch, device, cfg, wn, 128, None)
+            for arch, cfg, wn, seq in runs:
+                tp = tp_run(torch, device, cfg, wn, seq, mesh)
+                plain = tp_run(torch, device, cfg, wn, seq, None)
                 bitwise = (tp["losses"] == plain["losses"] and all(
                     torch.equal(a, b)
                     for a, b in zip(tp["params"], plain["params"])))
@@ -1627,8 +1643,11 @@ def phase_tp(torch, device):
                 n_good = [float(g.sum()) for g in tp["gates"]]
                 match = ("bitwise" if bitwise
                          else "within rel/atol 1e-5, gates equal")
+                stub = TP_STUB.get(cfg.frontend)
+                extra = f", {stub} {cfg.encoder_seq or cfg.prefix_len}" \
+                    if stub else ""
                 log(f"[tp] {arch} (n_layers {cfg.n_layers}, W={wn}, batch "
-                    f"2, seq 128) on a {dist.get_backend()} "
+                    f"2, seq {seq}{extra}) on a {dist.get_backend()} "
                     f"{tuple(mesh.shape)} {mesh.mesh_dim_names} mesh: "
                     f"{TP_STEPS} steps {match} the plain pytree step (losses "
                     f"{[round(l, 6) for l in tp['losses']]}, max |param "

@@ -109,7 +109,8 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     full cycle of the layer pattern per ``cfg.remat_policy``
     (models.model.forward_w), the reference's default.
     mesh: a ``("data", "model")`` DeviceMesh (the reference's
-    ``spmd_axes=``): the pytree step on this rank's worker slice, every
+    ``spmd_axes=``): the pytree step on this rank's worker slice (of the
+    params and of the batch, frames and patches too), every
     leaf a DTensor placed over ``model`` by launch/sharding.py
     (launch/tensor_parallel.py: place_params, TensorParallelStep, whose
     scope check raises for what it does not carry).

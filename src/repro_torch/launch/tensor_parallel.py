@@ -16,8 +16,9 @@ The step (:class:`TensorParallelStep`, built by ``launch/steps.py
 make_train_step(..., mesh=)``):
 
 * forward/backward — ``models.model.loss_fn_w`` on the DTensor leaves
-  under ``implicit_replication`` (the tokens, positions, masks and RoPE
-  tables count as replicated) with the model mesh ambient, so the
+  under ``implicit_replication`` (the tokens, the frontend's frames or
+  patches, positions, masks, RoPE and sinusoidal tables count as
+  replicated) with the model mesh ambient, so the
   sharding hints (``models/hints.py constrain``) redistribute the
   residual stream where the config asks (``seq_parallel``,
   ``attn_batch_shard``); a vocab-sharded table takes the masked lookup
@@ -38,13 +39,21 @@ make_train_step(..., mesh=)``):
   under the round's group mask with the one set of gates, so every
   replica of a replicated leaf is written alike.
 
-Scope (:func:`check_scope`): configs of 'G' layers only, with dense GLU
-MLPs, RMSNorm and RoPE (smollm-135m, qwen2.5-14b, qwen3-14b), algo
-'asgd', inner 'sgd', 'leaves' mode, a round every step, the blend through
-B2r/B2a (``ASGDConfig(use_fused=True)``) and wire None or "dtype".
-Every other option raises NotImplementedError naming its ROADMAP item.  Transport: NCCL for CUDA tensors, gloo for CPU
-tensors (``launch/mesh.py _check_transport``); nothing is staged through
-the host.
+Scope (:func:`check_scope`): configs of attention layers ('G', 'L'
+windows, 'E' encoder layers) with dense MLPs (GLU or plain with biases),
+RMSNorm or LayerNorm, RoPE or sinusoidal positions, softcaps, scaled
+embeddings, a vision prefix of patches or an audio encoder with
+cross-attention (smollm-135m, qwen2.5-14b, qwen3-14b, gemma3-1b,
+paligemma-3b, whisper-tiny); algo 'asgd', inner 'sgd', 'leaves' mode, a
+round every step, the blend through B2r/B2a
+(``ASGDConfig(use_fused=True)``) and wire None or "dtype".  'R' and 'S'
+layers, MoE, and every other option raise NotImplementedError naming
+their ROADMAP item.  Where the heads do not divide over ``model`` (the
+d_model fallback of ``sharding.param_pspec``), DTensor contracts the
+sharded d_model and replicates the attention's operands: correct, not
+parallel.  Transport: NCCL for CUDA tensors, gloo for CPU tensors
+(``launch/mesh.py _check_transport``); nothing is staged through the
+host.
 """
 from __future__ import annotations
 
@@ -74,18 +83,7 @@ def _model_features(cfg):
     types = set(cfg.pattern_cycle)
     return (("'R' (RG-LRU) layers", "15e", "R" in types),
             ("'S' (SSD) layers", "15e", "S" in types),
-            ("MoE FFNs", "15e", cfg.n_experts > 0),
-            ("'L' (windowed) layers", "15a", "L" in types),
-            ("an encoder or cross-attention", "15a",
-             "E" in types or cfg.encoder_layers > 0 or cfg.cross_attention),
-            ("a frontend or prefix", "15a",
-             cfg.frontend is not None or cfg.prefix_len > 0),
-            ("softcaps", "15a", cfg.logit_softcap is not None
-             or cfg.attn_softcap is not None),
-            ("scaled embeddings", "15a", cfg.scale_embeddings),
-            (f"norm {cfg.norm_type!r}", "15a", cfg.norm_type != "rmsnorm"),
-            ("the plain (non-GLU) MLP", "15a", not cfg.glu_mlp),
-            ("positions without RoPE", "15a", not cfg.use_rope))
+            ("MoE FFNs", "15e", cfg.n_experts > 0))
 
 
 def check_scope(cfg, *, algo, inner, gcfg, acfg, pack_spec=None,
@@ -256,9 +254,10 @@ class TensorParallelStep:
     live=None) -> (params, gossip, opt_state, metrics)`` on a rank of
     ``mesh``: params a tree of DTensor leaves (:func:`place_params`),
     gossip ``core.gossip.init_gossip_state(params, gcfg)`` of them, batch
-    the rank's worker slice ``{"tokens": (W_local, B, S)}`` (the same on
-    every ``model`` rank of a worker coordinate), the draws host ints, the
-    same on every rank.  metrics: "loss" the mean over all W workers, and
+    the rank's worker slice ``{"tokens": (W_local, B, S)}``, with
+    ``"frames"`` (W_local, B, S_enc, D) or ``"patches"`` (W_local, B, P,
+    D) for a frontend (each the same on every ``model`` rank of a worker
+    coordinate), the draws host ints, the same on every rank.  metrics: "loss" the mean over all W workers, and
     "gate" (W,) and "n_good" gathered over the worker axes, so every rank
     reports the whole ensemble's.  ``bytes_sent``: what this rank
     has put on the wire.  Built by ``launch/steps.py make_train_step``

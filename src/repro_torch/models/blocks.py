@@ -29,8 +29,8 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from .common import (AttnSpec, _gqa_expand, _project_qkv, attend_heads,
                      attention_decode, attention_dense, attention_flash,
-                     causal_mask, init_attention, init_kv_cache, make_norm,
-                     prefix_mask, sliding_mask)
+                     causal_mask, head_shards, init_attention, init_kv_cache,
+                     make_norm, prefix_mask, sliding_mask)
 from .hints import WORKERS, constrain, gathered
 from .mlp import apply_mlp, apply_mlp_nonglu, init_mlp, init_mlp_nonglu
 from .moe import apply_moe, apply_moe_decode, init_moe
@@ -320,24 +320,41 @@ def _cross_full(cfg: ModelConfig, p_cross, x, enc_out):
     against the encoder output enc_out (W, B, S_enc, D).  Returns (out,
     k, v), k/v (W, B, S_enc, KV, Dh) the encoder's keys and values, which
     a prefill keeps as its cross cache (the reference projects them a
-    second time for it; cross_spec has no bias, norm or RoPE)."""
-    k = torch.einsum("wbsd,wdhk->wbshk", enc_out, p_cross["wk"])
-    v = torch.einsum("wbsd,wdhk->wbshk", enc_out, p_cross["wv"])
-    return _cross_attend(cfg, p_cross, x, k, v), k, v
+    second time for it; cross_spec has no bias, norm or RoPE).  Where the
+    heads are sharded over ``model`` (launch/tensor_parallel.py), each
+    rank attends with its own heads (``attend_heads``) and k/v are None:
+    that path trains and keeps no cache."""
+    spec = cross_spec(cfg)
+    if head_shards(p_cross) is not None:
+        return (attend_heads(_cross_heads, p_cross, spec, x, enc_out),
+                None, None)
+    k, v = _cross_kv(p_cross, enc_out)
+    return _cross_attend(spec, p_cross, x, k, v), k, v
+
+
+def _cross_kv(p_cross, enc_out):
+    return (torch.einsum("wbsd,wdhk->wbshk", enc_out, p_cross["wk"]),
+            torch.einsum("wbsd,wdhk->wbshk", enc_out, p_cross["wv"]))
+
+
+def _cross_heads(p_cross, spec, x, enc_out):
+    """The cross-attention of ``spec``'s heads: k/v projected from the
+    encoder output, then :func:`_cross_attend`."""
+    return _cross_attend(spec, p_cross, x, *_cross_kv(p_cross, enc_out))
 
 
 def _cross_decode(cfg: ModelConfig, p_cross, x, cache):
     """One token's cross-attention against the bf16 cross cache, read in
     x's dtype as the reference reads it."""
-    return _cross_attend(cfg, p_cross, x, cache["cross_k"].to(x.dtype),
+    return _cross_attend(cross_spec(cfg), p_cross, x,
+                         cache["cross_k"].to(x.dtype),
                          cache["cross_v"].to(x.dtype))
 
 
-def _cross_attend(cfg: ModelConfig, p_cross, x, k, v):
+def _cross_attend(spec, p_cross, x, k, v):
     """Decoder queries of x (W, B, Sq, D) against the encoder's k/v, no
     mask, in the reference's order: the scale on q before the product,
     the softmax in f32, its probabilities cast to x's dtype."""
-    spec = cross_spec(cfg)
     q = torch.einsum("wbsd,wdhk->wbshk", x, p_cross["wq"])
     k = _gqa_expand(k, spec.n_heads)
     v = _gqa_expand(v, spec.n_heads)

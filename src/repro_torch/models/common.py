@@ -287,33 +287,52 @@ def attention_flash(params, spec: AttnSpec, x, positions, *,
 
 # the dim of the heads in each head-indexed leaf of an attention's params
 # (after the worker axis): wq/wk/wv (W, D, H|KV, Dh), wo (W, H, Dh, D),
-# the biases (W, H|KV, Dh)
-_HEAD_DIMS = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "bq": 1, "bk": 1, "bv": 1}
+# the biases (W, H|KV, Dh); the query side's and the key/value side's
+_Q_HEAD_DIMS = {"wq": 2, "wo": 1, "bq": 1}
+_KV_HEAD_DIMS = {"wk": 2, "wv": 2, "bk": 1, "bv": 1}
+
+
+def _kv_split(p_attn) -> bool:
+    from torch.distributed.tensor import Shard
+    return all(p_attn[n].placements == (Shard(d),)
+               for n, d in _KV_HEAD_DIMS.items() if n in p_attn)
 
 
 def head_shards(p_attn):
-    """The 1-D mesh that shards every head-indexed leaf of ``p_attn`` (DTensor
-    leaves, launch/tensor_parallel.py) along its heads, or None."""
+    """The 1-D mesh that shards ``p_attn``'s query heads (DTensor leaves,
+    launch/tensor_parallel.py): wq, wo and bq each sharded along its
+    heads, and the key/value heads either sharded alike or fewer, their
+    count dividing the mesh's size (one KV head for several ranks' query
+    heads: paligemma's 1 KV head beside its 4 heads at model 2); or
+    None."""
     from torch.distributed.tensor import DTensor, Shard
     wq = p_attn["wq"]
     if not isinstance(wq, DTensor) or wq.device_mesh.ndim != 1:
         return None
-    for name, dim in _HEAD_DIMS.items():
+    for name, dim in _Q_HEAD_DIMS.items():
         if name in p_attn and p_attn[name].placements != (Shard(dim),):
             return None
-    return wq.device_mesh
+    mesh = wq.device_mesh
+    if not _kv_split(p_attn) and mesh.size() % p_attn["wk"].shape[2]:
+        return None
+    return mesh
 
 
 def attend_heads(fn, p_attn, spec: AttnSpec, x, *args, **kw):
     """``fn(p_attn, spec, x, *args, **kw)``, an attention that projects x,
     attends per head and projects out.  Where :func:`head_shards` finds
-    its heads sharded, each rank runs ``fn`` on its own heads — the
+    its query heads sharded, each rank runs ``fn`` on its own heads — the
     leaves' local shards, the spec's head counts divided by the mesh size,
-    x gathered whole — and the output is the ``Partial`` sum of the ranks'
+    x and every DTensor of ``args`` (a cross-attention's encoder output)
+    gathered whole — and the output is the ``Partial`` sum of the ranks'
     parts, as the output projection sums over the heads: the same
-    function, since heads are independent.  Each part's gradient is
-    handed back as a ``Partial`` where a whole tensor fed every rank (x,
-    the qk-norm scales) and as the shard's own on the sharded leaves."""
+    function, since heads are independent.  Where the KV heads do not
+    split, each rank reads the one KV head its query heads share, its
+    leaves gathered whole and that head taken (the GQA grouping: query
+    head h reads KV head h // (H / KV)).  Each part's gradient is handed
+    back as a ``Partial`` where a whole tensor fed every rank (x, the
+    encoder output, the qk-norm scales, the gathered KV leaves) and as
+    the shard's own on the sharded leaves."""
     mesh = head_shards(p_attn)
     if mesh is None:
         return fn(p_attn, spec, x, *args, **kw)
@@ -323,12 +342,26 @@ def attend_heads(fn, p_attn, spec: AttnSpec, x, *args, **kw):
         if t.placements == (Replicate(),):
             return t.to_local(grad_placements=(Partial(),))
         return t.to_local()
+
+    def whole(t):
+        if not isinstance(t, DTensor):
+            return t
+        return local(t.redistribute(mesh, (Replicate(),)))
     m = mesh.size()
-    x = x.redistribute(mesh, (Replicate(),))
-    part = fn(tree_map(local, p_attn),
-              dataclasses.replace(spec, n_heads=spec.n_heads // m,
-                                  n_kv_heads=spec.n_kv_heads // m),
-              local(x), *args, **kw)
+    kv_split = _kv_split(p_attn)
+
+    def leaf(name, t):
+        if isinstance(t, dict):
+            return tree_map(local, t)
+        if name in _KV_HEAD_DIMS and not kv_split:
+            kv_head = mesh.get_local_rank() // (m // spec.n_kv_heads)
+            return whole(t).narrow(_KV_HEAD_DIMS[name], kv_head, 1)
+        return local(t)
+    part = fn({n: leaf(n, t) for n, t in p_attn.items()},
+              dataclasses.replace(
+                  spec, n_heads=spec.n_heads // m,
+                  n_kv_heads=spec.n_kv_heads // m if kv_split else 1),
+              whole(x), *map(whole, args), **kw)
     # backward keeps the replicated gradient whole on each rank
     return DTensor.from_local(part, mesh, (Partial(),))
 

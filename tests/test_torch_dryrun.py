@@ -15,7 +15,8 @@ formulas, and launch/dryrun.py's counters.
   the dense arch on every step, mamba2 and gemma3's (5 'L' + 'G') cycle
   on a packed engine.
 * ``run_pair`` on a reduced pair on a fake (2, 2) mesh, the counterpart of
-  the reference's ``test_dryrun_smoke_small_mesh``.
+  the reference's ``test_dryrun_smoke_small_mesh``, and on the production
+  two-pod (2, 16, 16) mesh in a fake group of 512.
 * The kernels' meta branches return the plain versions' output shapes and
   dtypes and note their modeled work; operands on another device raise.
 
@@ -177,6 +178,26 @@ def test_run_pair_smoke_small_mesh(mesh22):
     # so the tensor-parallel layout places what one port rank holds
     assert rec["memory"]["placed_bytes"] == rec["memory"]["argument_bytes"]
     assert not dist.is_initialized() or dist.get_world_size() == 4
+
+
+def test_run_pair_two_pod_mesh():
+    """A reduced pair through run_pair(multi_pod=True) with no mesh given:
+    the production (2, 16, 16) ("pod", "data", "model") mesh in a fake
+    group of 512 ranks, W = 32 worker groups (pod-major), W_local = 1,
+    the ring send planned, roofline terms formed; the group is gone
+    after."""
+    cfg = get_arch("smollm-135m").reduced()
+    shape = ShapeConfig("train_small", 16, 64, "train")
+    rec = D.run_pair("smollm-135m", shape.name, multi_pod=True,
+                     gcfg=GossipConfig(shifts=(1,), partial_blocks=2),
+                     cfg=cfg, shape=shape, full_budget_s=0.0, verbose=False)
+    assert rec["mesh"] == "2x16x16" and rec["chips"] == 512
+    assert rec["ranks"] == 512 and rec["w_local"] == 1
+    assert rec["collective_by_op"]["ppermute"] > 0
+    assert rec["hlo_flops"] > 0 and rec["hlo_bytes"] > 0
+    assert rec["dominant"] in ("compute", "memory", "collective")
+    assert 0 < rec["useful_ratio"] and rec["fits"]
+    assert not dist.is_initialized()
 
 
 def test_counters_track_live_bytes():

@@ -10,14 +10,27 @@ staleness guard, the next two blend.  Cases, from numpy seeds: reduced
 smollm-135m (4 heads and 2 KV heads divide 2); reduced qwen2.5-14b cut to
 3 heads and 1 KV head, so wq/wk/wv/wo take the d_model fallback that its
 40/8 heads take at model 16, on the bf16 wire; reduced qwen3-14b
-(qk-norm).  Every worker starts from the same base weights plus its own
-seeded offsets as large as the leaf's spread, which with eps 0.01 opens
-some gates on every case; norm scales, qk-norm scales and QKV biases are 0.5 x
-N(0, 1) (test_torch_qwen.py perturbs the last two so), so the replicated
-leaves carry real terms.  Each step's draws are chosen so that steps 1
-and 2 blend a group holding replicated leaves (shift 1: one row of a
-rank's slice crosses ranks; shift 2: both).  The seq_parallel hints of
-all three configs redistribute the residual stream.
+(qk-norm); reduced whisper-tiny cut to 3 heads (the fallback its 6 heads
+take at model 16) and a vocab of 500 that pads to 512, with 32 stub
+frames through its encoder, LayerNorm, the plain MLP with biases and
+cross-attention; reduced paligemma-3b (its 4 heads split over `model`,
+its 1 KV head falls back) with 8 stub patches ahead of the text;
+reduced gemma3-1b cut to 3 heads and 1 KV head (its 4/1 at model 16
+fall back) and to one ('L', 'G') cycle of 2 layers, with an attention
+softcap of 50 and a logit softcap of 30, which the registered config does
+not set, so both softcaps are reached, its 'L' window of 16 binding at
+seq 32.  Every worker starts from the
+same base weights plus its own seeded offsets as large as the leaf's
+spread, which with eps 0.01 opens some gates on every case; norm scales
+and biases (LayerNorm's and the MLP's too), qk-norm scales and QKV biases
+are 0.5 x N(0, 1) (test_torch_qwen.py perturbs the QKV biases and
+qk-norm scales so), so the replicated leaves carry real terms.  Each
+step's draws are chosen so that steps 1 and 2 blend a group holding
+replicated leaves (shift 1: one row of a rank's slice crosses ranks;
+shift 2: both).  The seq_parallel hints of every config but whisper's
+redistribute the residual stream.  Beside the cases, DTensor's rule for
+``Partial + Replicate``, which a replicated bias or the residual meets on
+the output of a contraction over a sharded dim, is shown on the ranks.
 
 While the ranks run, this process runs the reference (its plain blend;
 the fused one would run the Pallas kernels in interpret mode) and the
@@ -33,11 +46,7 @@ over `model` and the packs add in another order; the dot term cancels, so
 its value alone is no scale for its rounding).
 """
 import dataclasses
-import math
-import os
-import pathlib
 import subprocess
-import sys
 import time
 
 import jax
@@ -64,38 +73,9 @@ from repro_torch.models import model as TM
 
 import _torch_tp_ranks as R
 
-WORLD = 4
 TIMEOUT_S = 150            # the whole launch; a hang fails, it never waits
-RANKS = pathlib.Path(__file__).with_name("_torch_tp_ranks.py")
-SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 SIZES = dict(zip(("data", "model"), R.MESH))
 W_LOCAL = R.W // R.MESH[0]
-START_NOISE = 1.0          # each worker's offset, in units of its leaf's std
-PERTURBED = ("bq", "bk", "bv")
-
-
-def weights(cfg, seed):
-    """{path key: (W, ...) f32} from numpy: dense leaves N(0, 1/fan_in),
-    the embedding N(0, 0.02^2), norm scales and biases N(0, 0.5^2); each
-    worker the base plus START_NOISE of its own."""
-    rng = np.random.default_rng(seed)
-    out = {}
-    for path, leaf in SH.tree_paths(TM.init_model(cfg, device="meta")):
-        shape = tuple(leaf.shape)
-        tail = shape[1:] if path[0] == "scan" else shape
-        name = path[-1]
-        if name == "embed":
-            std = 0.02
-        elif len(tail) == 1 or name in PERTURBED:
-            std = 0.5
-        else:
-            std = 1.0 / math.sqrt(tail[1] if name == "wo" else tail[0])
-        base = std * rng.standard_normal(shape)
-        offsets = START_NOISE * std * rng.standard_normal((R.W,) + shape)
-        out[R.path_key(path)] = (base + offsets).astype(np.float32)
-    return out
-
-
 def jax_draws(key, gcfg):
     k_shift, k_blk = jax.random.split(key)
     return (int(jax.random.randint(k_shift, (), 0, len(gcfg.shifts))),
@@ -137,10 +117,32 @@ def make_case(arch, seed):
     rng = np.random.default_rng(seed + 100)
     tokens = [rng.integers(0, cfg.vocab, (R.W, R.BATCH, R.SEQ))
               .astype(np.int32) for _ in range(R.STEPS)]
+    # the frontend's stub input, lm_batch_iterator's 0.1 x N(0, 1)
+    stub = [0.1 * rng.standard_normal((R.W, R.BATCH, stub_len(cfg),
+                                       cfg.d_model)).astype(np.float32)
+            for _ in range(R.STEPS)] if cfg.frontend else None
     jcfg = jg.GossipConfig(**R.gossip_kw(arch, jnp.bfloat16))
-    return {"w": weights(cfg, seed), "tokens": tokens, "keys": keys,
+    return {"w": R.weights(cfg, seed), "tokens": tokens, "stub": stub,
+            "keys": keys,
             "draws": [jax_draws(jax.random.key(k), jcfg) for k in keys],
             "facts": facts}
+
+
+def stub_len(cfg):
+    """The positions of a frontend's stub input: frames or patches."""
+    return cfg.encoder_seq if cfg.frontend == "audio" else cfg.prefix_len
+
+
+def batches(arch, case):
+    """Each step's global batch (numpy): the tokens, and the frontend's
+    frames or patches."""
+    out = []
+    for t, tok in enumerate(case["tokens"]):
+        b = {"tokens": tok}
+        if case["stub"] is not None:
+            b[R.STUB[R.config(arch, get_arch).frontend]] = case["stub"][t]
+        out.append(b)
+    return out
 
 
 def run_reference(arch, case):
@@ -152,8 +154,9 @@ def run_reference(arch, case):
     step = jax.jit(jmake_train_step(cfg, algo="asgd", gcfg=gcfg, acfg=acfg,
                                     inner="sgd"))
     out = []
-    for tok, k in zip(case["tokens"], case["keys"]):
-        jp, state, opt, m = step(jp, state, opt, {"tokens": jnp.asarray(tok)},
+    for b, k in zip(batches(arch, case), case["keys"]):
+        jp, state, opt, m = step(jp, state, opt,
+                                 {n: jnp.asarray(v) for n, v in b.items()},
                                  jax.random.key(k))
         out.append({n: np.asarray(m[n]) for n in ("loss", "gate", "n_good")})
     return out, {R.path_key(p): np.asarray(x) for p, x in
@@ -189,27 +192,14 @@ def run_single(arch, case):
         return sums[-1][0]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tops, "gossip_reduce_w", recorded)
-        for tok, (si, bi) in zip(case["tokens"], case["draws"]):
-            params, state, _, m = step(params, state, 0,
-                                       {"tokens": torch.from_numpy(tok)}, si,
-                                       bi)
+        for b, (si, bi) in zip(batches(arch, case), case["draws"]):
+            params, state, _, m = step(
+                params, state, 0, {n: torch.from_numpy(v)
+                                   for n, v in b.items()}, si, bi)
             out.append({n: m[n].numpy() for n in ("loss", "gate", "n_good")}
                        | {"terms": sums[-1][0].numpy(), "mag": sums[-1][1]})
     return out, {R.path_key(p): x.numpy() for p, x in
                  SH.tree_paths(params)}
-
-
-def start_ranks(tmp, inputs):
-    np.savez(tmp / "inputs.npz", **inputs)
-    # loopback only, one thread a rank
-    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1",
-           "GLOO_SOCKET_IFNAME": "lo"}
-    logs = [open(tmp / f"rank{r}.log", "w") for r in range(WORLD)]
-    procs = [subprocess.Popen(
-        [sys.executable, str(RANKS), str(r), str(WORLD), str(tmp / "store"),
-         str(tmp / "inputs.npz"), str(tmp)], env=env, stdout=logs[r],
-        stderr=subprocess.STDOUT) for r in range(WORLD)]
-    return procs, logs
 
 
 def finish_ranks(tmp, procs, logs, t_end):
@@ -233,7 +223,7 @@ def finish_ranks(tmp, procs, logs, t_end):
                     texts[0])[-3000:]
         pytest.fail(f"ranks {bad} failed or passed the {TIMEOUT_S} s limit "
                     f"(codes {[procs[r].returncode for r in bad]}):\n{text}")
-    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(R.WORLD)]
 
 
 @pytest.fixture(scope="module")
@@ -248,8 +238,10 @@ def launch(tmp_path_factory):
         inputs.update({f"{a}.w.{k}": v for k, v in c["w"].items()})
         for t in range(R.STEPS):
             inputs[f"{a}.tok.{t}"] = c["tokens"][t]
+            if c["stub"] is not None:
+                inputs[f"{a}.stub.{t}"] = c["stub"][t]
             inputs[f"{a}.draw.{t}"] = np.asarray(c["draws"][t])
-    procs, logs = start_ranks(tmp, inputs)
+    procs, logs = R.start_ranks(tmp, inputs)
     threads = torch.get_num_threads()
     try:
         ref = {a: run_reference(a, c) for a, c in cases.items()}
@@ -334,13 +326,28 @@ def test_placements_and_placed_bytes(launch, arch):
             assert int(rk[f"{arch}.leaf.{key}.bytes"]) == SH.placed_bytes(
                 shape, torch.float32, spec, SIZES), key
     assert kinds == {"S", "R"}
-    if arch == "qwen2.5-14b":      # the d_model fallback of 3/1 heads
-        specs = {k: s for k, _, s, _ in cases[arch]["facts"]}
-        assert specs["scan/pos0/attn/wq"] == ("data", None, "model", None,
-                                              None)
+    specs = {k: s for k, _, s, _ in cases[arch]["facts"]}
+    d_model = ("data", None, "model", None, None)    # the fallback's wq
+    heads = ("data", None, None, "model", None)
+    if arch in ("qwen2.5-14b", "gemma3-1b"):   # the fallback of 3/1 heads
+        assert specs["scan/pos0/attn/wq"] == d_model
         assert specs["scan/pos0/attn/wo"] == ("data", None, None, None,
                                               "model")
+    if arch == "qwen2.5-14b":
         assert "model" not in specs["scan/pos0/attn/bq"]
+    if arch == "gemma3-1b":
+        assert "model" not in specs["scan/pos1/attn/q_norm/scale"]
+    if arch == "paligemma-3b":     # 4 heads split, 1 KV head falls back
+        assert specs["scan/pos0/attn/wq"] == heads
+        assert specs["scan/pos0/attn/wk"] == d_model
+    if arch == "whisper-tiny":
+        for mixer in ("encoder/scan/attn", "scan/pos0/attn",
+                      "scan/pos0/cross"):
+            assert specs[f"{mixer}/wq"] == d_model
+        for pre in ("encoder/scan", "scan/pos0"):
+            assert specs[f"{pre}/mlp/up_b"] == ("data", None, "model")
+            assert "model" not in specs[f"{pre}/mlp/down_b"]
+            assert "model" not in specs[f"{pre}/ln1/bias"]
 
 
 @pytest.mark.parametrize("arch", R.ARCHS)
@@ -387,12 +394,44 @@ def test_wire_bytes_are_the_shards(launch, arch):
 
 @pytest.mark.parametrize("arch", R.ARCHS)
 def test_hints_redistribute_and_live_raises(launch, arch):
-    """seq_parallel's hints moved the residual stream on the mesh; live=
-    raised NotImplementedError on every rank."""
+    """seq_parallel's hints moved the residual stream on the mesh (none
+    moved where the config has no seq_parallel: whisper's); live= raised
+    NotImplementedError on every rank."""
+    _, _, _, ranks = launch
+    seq_parallel = R.config(arch, get_arch).seq_parallel
+    for rk in ranks:
+        assert (int(rk[f"{arch}.hints_moved"]) > 0) == seq_parallel
+        assert int(rk[f"{arch}.live_raises"]) == 1
+
+
+# the attention layers that run on each rank's own heads: smollm's 4/2
+# heads, qwen3's 4/4 and paligemma's 4 heads (its 1 KV head read whole)
+# split over 2; 3 heads do not, and take the d_model fallback
+SPLIT_LAYERS = {"smollm-135m": 2, "qwen3-14b": 2, "paligemma-3b": 2}
+
+
+@pytest.mark.parametrize("arch", R.ARCHS)
+def test_attention_splits_heads_where_they_divide(launch, arch):
+    """Every attention layer of every step ran on each rank's own heads,
+    twice (the forward and remat's rerun in backward), where the query
+    heads divide over `model`; none did under the d_model fallback."""
     _, _, _, ranks = launch
     for rk in ranks:
-        assert int(rk[f"{arch}.hints_moved"]) > 0
-        assert int(rk[f"{arch}.live_raises"]) == 1
+        assert int(rk[f"{arch}.head_splits"]) == (
+            2 * R.STEPS * SPLIT_LAYERS.get(arch, 0)), arch
+
+
+def test_partial_plus_replicated_counts_once(launch):
+    """DTensor adds a replicated operand to a ``Partial`` value once: y's
+    value is the parts' sum plus b (1 + 2 + 10 on the 2 model ranks;
+    torch 2.13 keeps y ``Partial`` with b/2 folded into each rank's part),
+    and b's gradient of y's sum is one per element, not one per model
+    rank: what a replicated bias (down_b, a LayerNorm bias) or the
+    residual added to a contraction over a sharded dim needs."""
+    _, _, _, ranks = launch
+    for rk in ranks:
+        np.testing.assert_array_equal(rk["probe.y"], np.full(3, 13.0))
+        np.testing.assert_array_equal(rk["probe.grad"], np.ones(3))
 
 
 OUT_OF_SCOPE = {
@@ -404,10 +443,11 @@ OUT_OF_SCOPE = {
     "plain blend": dict(use_fused=False),
     "silent flag": dict(silent=True),
     "gossip_every 2": dict(gcfg=dict(gossip_every=2)),
-    "gemma3-1b": dict(arch="gemma3-1b"),
+    "recurrentgemma-9b": dict(arch="recurrentgemma-9b"),
     "mamba2-370m": dict(arch="mamba2-370m"),
     # a feature under an in-scope name is refused by the feature
-    "windowed smollm": dict(cfg=dict(pattern_cycle=("G", "L"))),
+    "qwen3 with 'S' layers": dict(arch="qwen3-14b",
+                                  cfg=dict(pattern_cycle=("G", "S"))),
     "MoE qwen3": dict(arch="qwen3-14b",
                       cfg=dict(n_experts=4, experts_per_token=2)),
 }
@@ -433,6 +473,18 @@ def test_scope_is_decided_by_features():
     name."""
     cfg = dataclasses.replace(get_arch("qwen3-14b").reduced(),
                               name="some-dense-lm")
+    TP.check_scope(cfg, algo="asgd", inner="sgd", gcfg=tg.GossipConfig(),
+                   acfg=tasgd.ASGDConfig(eps=R.EPS, use_fused=True))
+
+
+@pytest.mark.parametrize("arch", ("gemma3-1b", "paligemma-3b",
+                                  "whisper-tiny"))
+def test_frontend_and_gemma_features_pass_check_scope(arch):
+    """'L' windows, softcaps, scaled embeddings, the vision prefix, the
+    audio encoder with cross-attention, LayerNorm, the plain MLP and
+    sinusoidal positions pass check_scope, under any name."""
+    cfg = dataclasses.replace(get_arch(arch), name="some-lm",
+                              attn_softcap=50.0, logit_softcap=30.0)
     TP.check_scope(cfg, algo="asgd", inner="sgd", gcfg=tg.GossipConfig(),
                    acfg=tasgd.ASGDConfig(eps=R.EPS, use_fused=True))
 
