@@ -1663,6 +1663,129 @@ def phase_tp(torch, device):
     return total
 
 
+TP_SERVE_BATCH, TP_SERVE_NEW = 4, 16
+TP_SERVE_TOL = 1e-5                  # of the largest logit, where not bitwise
+# [tp-serve]'s runs: (arch, layers (None: all), prompt).  qwen2.5-14b at
+# full width cut to 2 layers, paligemma-3b to 2 layers after its 256
+# patches; whisper-tiny whole after its 1500 frames (416 + 16 tokens in
+# its 448 positions); the prompts of 2048 prefill through attention_flash
+TP_SERVE_RUNS = (("smollm-135m", None, 2048),
+                 ("qwen2.5-14b", 2, 2048),
+                 ("gemma3-1b", None, 2048),
+                 ("paligemma-3b", 2, 128),
+                 ("whisper-tiny", None, 416))
+
+
+def tp_serve_run(torch, device, cfg, prompt, mesh):
+    """``launch.serve.generate`` of TP_SERVE_NEW tokens at batch
+    TP_SERVE_BATCH from ``init_model(cfg, 0)`` and seeded prompts (and the
+    frontend's stub frames or patches) — tensor-parallel on ``mesh`` (the
+    params placed by ``place_serve_params``) when given, else plain —
+    twice: the first run records the logits of the prefill and of every
+    decode step (``serve.greedy_tokens`` wrapped), the second is timed.
+    Returns the tokens, the logits (CPU), generate's prefill and decode
+    times and the peak memory while serving (from the placed params)."""
+    from repro_torch.launch import serve
+    from repro_torch.launch import tensor_parallel as TP
+    from repro_torch.models.model import init_model
+
+    torch.cuda.empty_cache()
+    params = init_model(cfg, 0, device=device)
+    if mesh is not None:
+        params = TP.place_serve_params(mesh, params)
+    # the peak while serving (placement's own transient left out)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (TP_SERVE_BATCH, prompt),
+                                     device=device, generator=gen),
+             **serve.stub_inputs(cfg, (TP_SERVE_BATCH,), gen, device)}
+    greedy, logits = serve.greedy_tokens, []
+
+    def recorded(x):
+        logits.append((x.full_tensor() if mesh is not None else x).cpu())
+        return greedy(x)
+    serve.greedy_tokens = recorded
+    try:
+        toks, _ = serve.generate(cfg, params, batch, prompt, TP_SERVE_NEW,
+                                 mesh=mesh)
+    finally:
+        serve.greedy_tokens = greedy
+    again, t = serve.generate(cfg, params, batch, prompt, TP_SERVE_NEW,
+                              mesh=mesh)
+    if not torch.equal(toks, again):
+        raise AssertionError(f"[tp-serve] {cfg.name}: two runs' tokens "
+                             "differ")
+    out = {"tokens": toks.cpu(), "logits": logits, **t,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_serve(torch, device):
+    """[tp-serve]: the tensor-parallel serve (launch/steps.py
+    make_prefill_step / make_decode_step(mesh=) through
+    ``launch.serve.generate(mesh=)``) at one rank of an NCCL group, a
+    (1, 1) ("data", "model") mesh — params placed by
+    ``param_pspec(train=False)``, every cache leaf by ``cache_pspec`` (its
+    KV heads over the one ``model`` rank) — for each of TP_SERVE_RUNS
+    against the plain ``generate`` from the same weights and prompts:
+    tokens equal, and the logits of the prefill and of every decode step
+    bitwise, or else within TP_SERVE_TOL of the largest; each path's
+    prefill ms, decode ms a token (generate's, the second run) and peak
+    memory."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import mesh as MM
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_serve_") as tmp:
+        MM.init_ranks(str(pathlib.Path(tmp) / "store"), 0, 1, device)
+        try:
+            mesh = MM.make_host_mesh(1, 1, device=device)
+            for arch, layers, prompt in TP_SERVE_RUNS:
+                cfg = get_arch(arch)
+                if layers is not None:
+                    cfg = dataclasses.replace(cfg, n_layers=layers)
+                tp = tp_serve_run(torch, device, cfg, prompt, mesh)
+                plain = tp_serve_run(torch, device, cfg, prompt, None)
+                pairs = list(zip(tp["logits"], plain["logits"]))
+                bitwise = all(torch.equal(a, b) for a, b in pairs)
+                err = max(float((a - b).abs().max()
+                                / b[:, :cfg.vocab].abs().max())
+                          for a, b in pairs)
+                if not torch.equal(tp["tokens"], plain["tokens"]) or not (
+                        bitwise or err <= TP_SERVE_TOL):
+                    raise AssertionError(
+                        f"[tp-serve] {arch}: tokens equal "
+                        f"{torch.equal(tp['tokens'], plain['tokens'])}, "
+                        f"largest logit difference {err:.3e} of the "
+                        f"largest logit (gate {TP_SERVE_TOL})")
+                stub = {"audio": f", {cfg.encoder_seq} frames",
+                        "vision": f", {cfg.prefix_len} patches"}.get(
+                            cfg.frontend, "")
+                log(f"[tp-serve] {arch} (n_layers {cfg.n_layers}, batch "
+                    f"{TP_SERVE_BATCH}, prompt {prompt}{stub}, "
+                    f"{TP_SERVE_NEW} tokens) on a {dist.get_backend()} "
+                    f"{tuple(mesh.shape)} {mesh.mesh_dim_names} mesh: tokens "
+                    f"equal, logits of the prefill and {len(pairs) - 1} "
+                    f"decode steps "
+                    f"{'bitwise' if bitwise else f'within {err:.3e}'} the "
+                    f"plain serve's; prefill {tp['prefill_ms']:.3f} ms vs "
+                    f"plain {plain['prefill_ms']:.3f} ms, decode "
+                    f"{tp['decode_ms_per_token']:.3f} vs "
+                    f"{plain['decode_ms_per_token']:.3f} ms a token; peak "
+                    f"{tp['peak_gib']:.2f} GiB vs {plain['peak_gib']:.2f} GiB")
+                del tp, plain
+        finally:
+            dist.destroy_process_group()
+    log(f"[tp-serve] phase {time.perf_counter() - t0:.1f} s")
+
+
 def pytree_breakdown(torch, device, cfg, state, gcfg, acfg, step):
     """CUDA-event times of the pieces of one full-size pytree step: the
     forward/backward, the exchange, the packs (params, grads, ext and the
@@ -4088,6 +4211,7 @@ def main() -> int:
     counts.update(phase_pytree(torch, device))
     for name, n in phase_tp(torch, device).items():
         counts[name] += n
+    phase_tp_serve(torch, device)
     counts.update(phase_fused_update(torch, device))
     kres.update(phase_kmeans_kernels(torch, device))
     counts.update(phase_parzen_blend(torch, device))

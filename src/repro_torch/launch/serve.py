@@ -10,7 +10,10 @@ CPU through the kernels' plain versions.  The port serves every arch of
 the reference: whisper-tiny's prompt follows the encoder's output on
 ``encoder_seq`` stub frames, paligemma-3b's follows ``prefix_len`` stub
 patch embeddings, both drawn at 0.1 x N(0, 1) from the seed, as the
-reference's server draws them.
+reference's server draws them.  ``generate(..., mesh=)`` serves the
+attention archs tensor-parallel over a ``("data", "model")`` mesh
+(launch/tensor_parallel.py); the CLI, as the reference's, has no flag for
+it.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import torch
 from .. import resolve_device, set_full_fp32_precision
 from ..configs.registry import get_arch
 from ..models import model as M
+from .steps import make_decode_step, make_prefill_step
+from .tensor_parallel import greedy_tokens, serve_gather, serve_slice
 
 
 def _sync(device) -> None:
@@ -44,32 +49,47 @@ def stub_inputs(cfg, lead, generator, device):
 
 
 @torch.no_grad()
-def generate(cfg, params, batch, prompt_len, new_tokens):
-    """Prefill + greedy decode loop.  Returns (tokens (B, new_tokens),
-    {"prefill_ms", "decode_ms_per_token", "steps_per_s"}): host-clock times
-    of work that ends in a device sync.  A vision prefix takes the first
-    ``cfg.prefix_len`` positions of the cache, so decode writes after
-    it."""
+def generate(cfg, params, batch, prompt_len, new_tokens, mesh=None):
+    """Prefill + greedy decode loop (launch/steps.py's serving steps, the
+    argmax ``tensor_parallel.greedy_tokens``).
+    Returns (tokens (B, new_tokens), {"prefill_ms", "decode_ms_per_token",
+    "steps_per_s"}): host-clock times of work that ends in a device sync.
+    A vision prefix takes the first ``cfg.prefix_len`` positions of the
+    cache, so decode writes after it.
+
+    mesh: a ``("data", "model")`` DeviceMesh, every rank calling with the
+    same whole ``batch`` and params placed by ``tensor_parallel
+    .place_serve_params``: each rank serves its slice of the batch over
+    the data axes (all of it where the batch does not divide), tensor-
+    parallel over ``model``, its cache placed by ``cache_pspec``; every
+    rank returns the whole batch's tokens."""
+    prefill = make_prefill_step(cfg, mesh)
+    decode = make_decode_step(cfg, mesh)
+    rows = batch["tokens"].shape[0]
+    if mesh is not None:
+        batch = {k: serve_slice(mesh, v) for k, v in batch.items()}
     device = batch["tokens"].device
     prefix = M.vision_prefix(cfg)
     _sync(device)
     t0 = time.perf_counter()
-    last, cache = M.prefill(cfg, params, batch,
-                            cache_len=prompt_len + prefix + new_tokens)
-    tok = torch.argmax(last, dim=-1)
+    last, cache = prefill(params, batch,
+                          cache_len=prompt_len + prefix + new_tokens)
+    tok = greedy_tokens(last)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     out = [tok]
     t0 = time.perf_counter()
     for i in range(new_tokens - 1):
-        logits, cache = M.decode_step(cfg, params, tok,
-                                      prompt_len + prefix + i, cache)
-        tok = torch.argmax(logits, dim=-1)
+        logits, cache = decode(params, tok, prompt_len + prefix + i, cache)
+        tok = greedy_tokens(logits)
         out.append(tok)
     _sync(device)
     steps = max(new_tokens - 1, 1)
     decode_s = max(time.perf_counter() - t0, 1e-9)
-    return torch.stack(out, dim=1).to(torch.int32), {
+    toks = torch.stack(out, dim=1).to(torch.int32)
+    if mesh is not None:
+        toks = serve_gather(mesh, toks, rows)
+    return toks, {
         "prefill_ms": prefill_s * 1e3,
         "decode_ms_per_token": decode_s * 1e3 / steps,
         "steps_per_s": (new_tokens - 1) / decode_s}

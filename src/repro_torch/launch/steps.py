@@ -12,7 +12,8 @@
                of the payload launched delay+1 rounds ago)
 
 and the serving steps (:func:`make_prefill_step`, :func:`make_decode_step`)
-over models.model's prefill and decode_step.
+over models.model's prefill and decode_step, on one device or, given a
+mesh, tensor-parallel (launch/tensor_parallel.py).
 
 ``algo`` 'sync' (the synchronous data-parallel baseline) and 'silent'
 (SimuParallelSGD) replace the gossip round on the pytree and packed
@@ -249,22 +250,41 @@ def _serve_cfg(cfg: ModelConfig) -> ModelConfig:
                                seq_parallel=False)
 
 
-def make_prefill_step(cfg: ModelConfig):
-    """Returns step(params, batch) -> (last_logits (B, V), cache): the
-    prompt's full-sequence pass (models.model.prefill), its cache as long
-    as the prompt (and a vision prefix)."""
-    cfg = _serve_cfg(cfg)
+def make_prefill_step(cfg: ModelConfig, mesh=None):
+    """Returns step(params, batch, cache_len=None) -> (last_logits (B, V),
+    cache): the prompt's full-sequence pass (models.model.prefill), its
+    cache ``cache_len`` positions long (default: as long as the prompt and
+    a vision prefix).
 
-    def step(params, batch):
-        return M.prefill(cfg, params, batch)
+    mesh: a ``("data", "model")`` DeviceMesh — params placed by
+    ``launch/tensor_parallel.py place_serve_params`` (the reference's
+    ``param_pspec(train=False)``), batch the rank's share
+    (``tensor_parallel.serve_slice``); the logits come back vocab-sharded
+    and every cache leaf placed by ``sharding.cache_pspec`` (KV heads, else
+    the sequence, over ``model``; else replicated), redistributed once at
+    the end of the prefill.  Configs with 'R'/'S' layers or MoE raise
+    NotImplementedError (ROADMAP item 15e)."""
+    cfg = _serve_cfg(cfg)
+    if mesh is not None:
+        from .tensor_parallel import make_serve_steps
+        return make_serve_steps(cfg, mesh)[0]
+
+    def step(params, batch, cache_len=None):
+        return M.prefill(cfg, params, batch, cache_len=cache_len)
     return step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
     """Returns step(params, token, pos, cache) -> (logits (B, V), cache):
     one greedy-decode position (models.model.decode_step; the cache is
-    updated in place)."""
+    updated in place).  mesh: as :func:`make_prefill_step`'s — the cache a
+    placed one (the prefill's, or ``tensor_parallel.place_cache``'s), the
+    token the rank's share of the batch, the logits vocab-sharded
+    (``tensor_parallel.greedy_tokens`` takes their argmax)."""
     cfg = _serve_cfg(cfg)
+    if mesh is not None:
+        from .tensor_parallel import make_serve_steps
+        return make_serve_steps(cfg, mesh)[1]
 
     def step(params, token, pos, cache):
         return M.decode_step(cfg, params, token, pos, cache)

@@ -1,5 +1,6 @@
-"""Tensor parallelism over ``model``: the pytree ASGD train step on leaves
-placed as ``launch/sharding.py`` lays them out.
+"""Tensor parallelism over ``model``: the pytree ASGD train step, and
+prefill and greedy decode, on leaves placed as ``launch/sharding.py`` lays
+them out.
 
 Layout.  A ``("data", "model")`` (or ``("pod", "data", "model")``) mesh,
 one rank per point.  The worker axis W is split over the worker axes as
@@ -39,6 +40,24 @@ make_train_step(..., mesh=)``):
   under the round's group mask with the one set of gates, so every
   replica of a replicated leaf is written alike.
 
+Serving (:func:`make_serve_steps`, built by ``launch/steps.py
+make_prefill_step`` / ``make_decode_step(mesh=)``; ``launch/serve.py
+generate(mesh=)``): one model's params, no worker axis, placed by
+``param_pspec(train=False)`` (:func:`place_serve_params`); the batch the
+rank's slice over the data axes where it divides, else whole
+(:func:`serve_slice`); the decode cache placed by ``cache_pspec``
+(:func:`place_cache`): KV heads ``Shard``ed over ``model`` where they
+divide, else the sequence, else ``Replicate()``.  The prefill
+(``models.model.prefill`` on the DTensor leaves) projects each layer's
+K/V as its heads are placed and redistributes every cache leaf once, at
+its end (:func:`_place_prefill_cache`).  A decode step reads each rank's
+local shard (``models/common.py _decode_placed``; whisper's cross cache
+alike): its own KV heads, or its own positions combined over ``model``
+as flash-decoding combines them, or the whole replicated cache; no
+cache-sized tensor moves.  The logits come back vocab-sharded, their
+argmax taken over the shards (:func:`greedy_tokens`).  Configs with 'R'
+or 'S' layers or MoE raise (:func:`check_serve_scope`, ROADMAP item 15e).
+
 Scope (:func:`check_scope`): configs of attention layers ('G', 'L'
 windows, 'E' encoder layers) with dense MLPs (GLU or plain with biases),
 RMSNorm or LayerNorm, RoPE or sinusoidal positions, softcaps, scaled
@@ -68,12 +87,14 @@ from ..core.gossip import (GossipState, _fused_blend, leaf_groups,
 from ..core.tree import flatten_sorted, tree_map, unflatten
 from . import sharding as SH
 from .mesh import (_roll_workers_manual, _worker_group, data_axes,
-                   gather_workers, mesh_context, shard_workers)
+                   gather_workers, mesh_context, n_worker_groups,
+                   shard_workers)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
+def _not_ported(what: str, item: str,
+                step: str = "train step") -> NotImplementedError:
     return NotImplementedError(
-        f"tensor-parallel train step: {what} is not ported (ROADMAP Queue A "
+        f"tensor-parallel {step}: {what} is not ported (ROADMAP Queue A "
         f"item {item})")
 
 
@@ -118,6 +139,15 @@ def check_scope(cfg, *, algo, inner, gcfg, acfg, pack_spec=None,
             "round sums the gate partials over 'model' itself")
 
 
+def check_serve_scope(cfg) -> None:
+    """Raise NotImplementedError for a model the tensor-parallel serve does
+    not carry ('R'/'S' layers, MoE: ROADMAP item 15e), as
+    :func:`check_scope` does for training."""
+    for what, item, present in _model_features(cfg):
+        if present:
+            raise _not_ported(f"{what} ({cfg.name!r})", item, "serve")
+
+
 # ---------------------------------------------------------------------------
 # placement
 # ---------------------------------------------------------------------------
@@ -153,6 +183,144 @@ def place_params(mesh, tree):
         distribute_tensor(shard_workers(x, mesh), mm,
                           SH.placements(mm, (None,) + tuple(s[1:])))
         for x, s in zip(leaves, specs)])
+
+
+def place_serve_params(mesh, tree):
+    """This rank's placed tree of one model's params (no worker axis; every
+    rank passes the same): each leaf on :func:`model_mesh` by
+    ``sharding.tree_pspecs(train=False)`` — heads, d_ff and the vocab over
+    ``model`` where they divide, replicated over the data axes."""
+    from torch.distributed.tensor import distribute_tensor
+    mm = model_mesh(mesh)
+    specs = flatten_sorted(SH.tree_pspecs(mesh, tree, train=False))[0]
+    leaves, treedef = flatten_sorted(tree)
+    return unflatten(treedef, [distribute_tensor(x, mm, SH.placements(mm, s))
+                               for x, s in zip(leaves, specs)])
+
+
+def _model_only(spec) -> tuple:
+    """A spec's ``model`` entries, the data axes' dropped (the batch is
+    sliced by hand, not placed)."""
+    return tuple(a if a == "model" else None for a in spec)
+
+
+def _batch_dim(path) -> int:
+    """The batch dim of a cache leaf: behind the layer axis of a
+    scan-stacked leaf (``sharding.cache_pspec``'s rule)."""
+    return 1 if any(n.startswith("pos") for n in path) else 0
+
+
+def serve_slice(mesh, x, dim: int = 0):
+    """This rank's share of a serving batch along ``dim``: its slice over
+    the data axes where the batch divides over them (``batch_pspec``),
+    else the whole batch."""
+    groups = n_worker_groups(mesh)
+    if groups == 1 or x.shape[dim] % groups:
+        return x
+    n = x.shape[dim] // groups
+    return x.narrow(dim, dist.get_rank(_worker_group(mesh)) * n, n)
+
+
+def serve_gather(mesh, x, batch: int):
+    """The whole batch (dim 0) from every data coordinate's
+    :func:`serve_slice` of a batch of ``batch`` rows."""
+    groups = n_worker_groups(mesh)
+    if groups == 1 or batch % groups:
+        return x
+    return gather_workers(x, mesh)
+
+
+def place_cache(mesh, cache, cfg):
+    """This rank's placed decode cache of a global one (every rank passes
+    the same, e.g. ``models.model.init_cache``'s): each leaf by
+    ``sharding.cache_pspecs`` — its batch the rank's data slice where the
+    spec names the data axes, the rest on :func:`model_mesh`: ``Shard``
+    on the KV heads where they divide over ``model``, else on the
+    sequence, else ``Replicate()``.  Leaves are copied, so decoding into
+    the placed cache leaves ``cache`` alone."""
+    from torch.distributed.tensor import distribute_tensor
+    mm = model_mesh(mesh)
+    specs = flatten_sorted(SH.cache_pspecs(mesh, cache, cfg,
+                                           worker_axes=data_axes(mesh)))[0]
+    out = []
+    for (path, x), spec in zip(SH.tree_paths(cache), specs):
+        b = _batch_dim(path)
+        if spec[b] is not None:
+            x = serve_slice(mesh, x, b)
+        out.append(distribute_tensor(x.clone(), mm,
+                                     SH.placements(mm, _model_only(spec))))
+    return unflatten(flatten_sorted(cache)[1], out)
+
+
+def _place_prefill_cache(mm, cache, cfg):
+    """The prefill's cache (DTensor leaves as the projections left them:
+    heads sharded, replicated, or a ``Partial`` f32 sum over a sharded
+    d_model) redistributed once to ``sharding.cache_pspec``'s placements
+    and cast to bf16.  The leaves hold the rank's batch already."""
+    sizes = {"model": mm.size()}
+    return SH.tree_map_with_path(
+        lambda path, x: x.redistribute(mm, SH.placements(mm, _model_only(
+            SH.cache_pspec(path, x, cfg, axis_sizes=sizes)))).to(
+                torch.bfloat16), cache)
+
+
+def greedy_tokens(logits):
+    """``torch.argmax(logits, dim=-1)`` of (B, V) logits whose vocab dim is
+    sharded over a 1-D mesh (``Shard(-1)``, the lm_head's or the tied
+    table's placement): each rank's first largest column and its value,
+    all-gathered, and the first rank holding the row's largest taken —
+    the whole row's first largest, as ``torch.argmax`` returns at ties.
+    Other placements are gathered whole; a plain tensor is argmaxed."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(logits, DTensor):
+        return torch.argmax(logits, dim=-1)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    if logits.placements != (Shard(last),):
+        return torch.argmax(logits.full_tensor(), dim=-1)
+    local = logits.to_local()
+    idx = torch.argmax(local, dim=-1)
+    val = local.gather(-1, idx[..., None])[..., 0]
+    first = local.shape[-1] * mesh.get_local_rank()   # even shards
+    both = torch.stack([val.double(), (idx + first).double()])[None]
+    parts = DTensor.from_local(both, mesh, (Shard(0),)).full_tensor()
+    best = torch.argmax(parts[:, 0], dim=0)
+    return parts[:, 1].gather(0, best[None])[0].long()
+
+
+def _check_placed(tree, what: str, how: str) -> None:
+    """Raise unless every leaf of ``tree`` is a DTensor: the mesh path
+    never serves on whole leaves."""
+    from torch.distributed.tensor import DTensor
+    if not all(isinstance(x, DTensor) for x in flatten_sorted(tree)[0]):
+        raise ValueError(f"tensor-parallel serve: the {what} are not "
+                         f"placed on the mesh (use {how})")
+
+
+def make_serve_steps(cfg, mesh):
+    """(prefill, decode) of ``launch/steps.py make_prefill_step`` /
+    ``make_decode_step(mesh=)``: ``models.model``'s prefill and
+    decode_step on :func:`place_serve_params`' leaves under
+    ``implicit_replication`` (tokens, patches, frames and position tables
+    count as replicated) with the model mesh ambient.  ``cfg``: the
+    serving config (``_serve_cfg``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ..models import model as M
+    check_serve_scope(cfg)
+    mm = model_mesh(mesh)
+
+    def prefill(params, batch, cache_len=None):
+        _check_placed(params, "params", "place_serve_params")
+        with implicit_replication(), mesh_context(mm):
+            last, cache = M.prefill(cfg, params, batch, cache_len=cache_len)
+            return last, _place_prefill_cache(mm, cache, cfg)
+
+    def decode(params, token, pos, cache):
+        _check_placed(params, "params", "place_serve_params")
+        _check_placed(cache, "cache", "the prefill or place_cache")
+        with implicit_replication(), mesh_context(mm):
+            return M.decode_step(cfg, params, token, pos, cache)
+    return prefill, decode
 
 
 def gather_params(mesh, tree):

@@ -27,10 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .common import (AttnSpec, _gqa_expand, _project_qkv, attend_heads,
+from .common import (AttnSpec, _gqa_expand, attend_heads, attend_keys,
                      attention_decode, attention_dense, attention_flash,
-                     causal_mask, head_shards, init_attention, init_kv_cache,
-                     make_norm, prefix_mask, sliding_mask)
+                     cache_split, causal_mask, head_shards, heads_kv,
+                     init_attention, init_kv_cache, make_norm, placed,
+                     prefix_mask, project_kv, sliding_mask, split_attend)
 from .hints import WORKERS, constrain, gathered
 from .mlp import apply_mlp, apply_mlp_nonglu, init_mlp, init_mlp_nonglu
 from .moe import apply_moe, apply_moe_decode, init_moe
@@ -230,14 +231,9 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
                                              positions, ltype, prefix_len))
         if return_cache:
             # recompute K/V once for the cache, as the reference does
-            _, k, v = _project_qkv(p["attn"], spec, h, positions)
-            W, B = x.shape[:2]
-            cache = init_kv_cache(W * B, cache_len or seq, cfg.n_kv_heads,
-                                  cfg.resolved_head_dim, device=x.device)
-            cache = {n: c.reshape((W, B) + c.shape[1:])
-                     for n, c in cache.items()}
-            cache["k"][:, :, :seq] = k.to(torch.bfloat16)
-            cache["v"][:, :, :seq] = v.to(torch.bfloat16)
+            k, v = heads_kv(project_kv, p["attn"], spec, h, positions)
+            cache = {"k": prompt_cache(k, cache_len or seq),
+                     "v": prompt_cache(v, cache_len or seq)}
     elif ltype == "R":
         if _batch_shard(cfg, h):
             # the batch-sharded recurrent block
@@ -259,15 +255,34 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
     x = x + out
     if "cross" in p and enc_out is not None:
         out, k, v = _cross_full(cfg, p["cross"], norm(p["ln_cross"], x),
-                                enc_out)
+                                enc_out, want_kv=return_cache)
         x = x + out
         if return_cache and cache is not None:
-            cache["cross_k"] = k.to(torch.bfloat16)
-            cache["cross_v"] = v.to(torch.bfloat16)
+            cache["cross_k"] = prompt_cache(k, k.shape[2])
+            cache["cross_v"] = prompt_cache(v, v.shape[2])
     if cfg.seq_parallel:
         x = constrain(x, WORKERS, None, "model", None)
     x, aux = _ffn(cfg, p, x, norm)
     return x, aux, cache
+
+
+def prompt_cache(t, length: int):
+    """A prompt's k or v (W, B, S, KV, Dh) as a bf16 cache leaf of
+    ``length`` positions, zeros after S.  A DTensor (the tensor-parallel
+    prefill) keeps its placements, its local shard padded; where it is a
+    ``Partial`` sum (a projection over a sharded d_model) it stays f32,
+    for launch/tensor_parallel.py to reduce before the cast."""
+    from torch.distributed.tensor import DTensor, Partial
+    dtype = torch.bfloat16
+    local = t.to_local() if placed(t) else t
+    if placed(t) and any(isinstance(p, Partial) for p in t.placements):
+        dtype = torch.float32
+    out = local.new_zeros(local.shape[:2] + (length,) + local.shape[3:],
+                          dtype=dtype)
+    out[:, :, :local.shape[2]] = local.to(dtype)
+    if not placed(t):
+        return out
+    return DTensor.from_local(out, t.device_mesh, t.placements)
 
 
 def _batch_shard(cfg: ModelConfig, h) -> bool:
@@ -315,19 +330,21 @@ def _mlp(cfg: ModelConfig, p_mlp, h):
             else apply_mlp_nonglu(p_mlp, h, cfg.act))
 
 
-def _cross_full(cfg: ModelConfig, p_cross, x, enc_out):
+def _cross_full(cfg: ModelConfig, p_cross, x, enc_out, want_kv=False):
     """Full-sequence cross-attention: decoder queries of x (W, B, S, D)
     against the encoder output enc_out (W, B, S_enc, D).  Returns (out,
     k, v), k/v (W, B, S_enc, KV, Dh) the encoder's keys and values, which
     a prefill keeps as its cross cache (the reference projects them a
     second time for it; cross_spec has no bias, norm or RoPE).  Where the
     heads are sharded over ``model`` (launch/tensor_parallel.py), each
-    rank attends with its own heads (``attend_heads``) and k/v are None:
-    that path trains and keeps no cache."""
+    rank attends with its own heads (``attend_heads``), and k/v are
+    projected apart on the DTensor leaves when ``want_kv`` (the
+    tensor-parallel prefill's cache), else None."""
     spec = cross_spec(cfg)
     if head_shards(p_cross) is not None:
-        return (attend_heads(_cross_heads, p_cross, spec, x, enc_out),
-                None, None)
+        out = attend_heads(_cross_heads, p_cross, spec, x, enc_out)
+        return (out, *(heads_kv(lambda p, _, e: _cross_kv(p, e), p_cross,
+                                spec, enc_out) if want_kv else (None, None)))
     k, v = _cross_kv(p_cross, enc_out)
     return _cross_attend(spec, p_cross, x, k, v), k, v
 
@@ -345,10 +362,34 @@ def _cross_heads(p_cross, spec, x, enc_out):
 
 def _cross_decode(cfg: ModelConfig, p_cross, x, cache):
     """One token's cross-attention against the bf16 cross cache, read in
-    x's dtype as the reference reads it."""
-    return _cross_attend(cross_spec(cfg), p_cross, x,
-                         cache["cross_k"].to(x.dtype),
-                         cache["cross_v"].to(x.dtype))
+    x's dtype as the reference reads it.  A cross cache placed by
+    ``cache_pspec`` (launch/tensor_parallel.py) is read as
+    ``models/common.py _decode_placed`` reads a self-attention cache,
+    over every encoder position: each rank's KV heads with its own query
+    heads, or the whole query against each rank's positions combined
+    over the mesh, or the whole replicated cache."""
+    spec = cross_spec(cfg)
+    kc, vc = cache["cross_k"], cache["cross_v"]
+    if not placed(kc):
+        return _cross_attend(spec, p_cross, x, kc.to(x.dtype),
+                             vc.to(x.dtype))
+    from torch.distributed.tensor import DTensor, Replicate
+    split = cache_split(kc)
+    kl, vl = kc.to_local(), vc.to_local()
+    if split == "heads":
+        return attend_heads(_cross_cached, p_cross, spec, x, kl, vl)
+    q = torch.einsum("wbsd,wdhk->wbshk", x, p_cross["wq"]).full_tensor()
+    if split == "whole":
+        out = attend_keys(spec, q, kl, vl, q.dtype)
+    else:
+        out = split_attend(spec, q, kl, vl, kc.device_mesh)
+    out = DTensor.from_local(out, kc.device_mesh, (Replicate(),))
+    return torch.einsum("wbqhk,whkd->wbqd", out, p_cross["wo"])
+
+
+def _cross_cached(p_cross, spec, x, k, v):
+    """:func:`_cross_attend` of ``spec``'s heads on their cached k/v."""
+    return _cross_attend(spec, p_cross, x, k.to(x.dtype), v.to(x.dtype))
 
 
 def _cross_attend(spec, p_cross, x, k, v):

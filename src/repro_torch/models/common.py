@@ -180,22 +180,36 @@ def init_attention(generator, spec: AttnSpec, dtype=torch.float32,
     return p
 
 
+# each projection's (weight, bias, qk-norm, RoPE)
+_PROJECTIONS = {"q": ("wq", "bq", "q_norm", True),
+                "k": ("wk", "bk", "k_norm", True),
+                "v": ("wv", "bv", None, False)}
+
+
+def _project(params, spec: AttnSpec, x, positions, which: str):
+    """x: (W, B, S, D) -> the ``which`` ("q", "k" or "v") projection
+    (W, B, S, H|KV, Dh): the bias, the qwen3-style per-head RMS norm
+    (q and k) and RoPE (q and k) where the spec has them."""
+    w, b, norm, rope = _PROJECTIONS[which]
+    t = torch.einsum("wbsd,wdhk->wbshk", x, params[w])
+    if spec.qkv_bias:
+        t = t + per_worker(params[b], t.ndim)
+    if spec.qk_norm and norm:
+        t = rmsnorm(params[norm], t)
+    if spec.use_rope and rope:
+        t = apply_rope(t, positions, spec.rope_theta)
+    return t
+
+
 def _project_qkv(params, spec: AttnSpec, x, positions):
     """x: (W, B, S, D) -> q: (W, B, S, H, Dh), k/v: (W, B, S, KV, Dh)."""
-    q = torch.einsum("wbsd,wdhk->wbshk", x, params["wq"])
-    k = torch.einsum("wbsd,wdhk->wbshk", x, params["wk"])
-    v = torch.einsum("wbsd,wdhk->wbshk", x, params["wv"])
-    if spec.qkv_bias:
-        q = q + per_worker(params["bq"], q.ndim)
-        k = k + per_worker(params["bk"], k.ndim)
-        v = v + per_worker(params["bv"], v.ndim)
-    if spec.qk_norm:   # qwen3-style per-head RMS norm before RoPE
-        q = rmsnorm(params["q_norm"], q)
-        k = rmsnorm(params["k_norm"], k)
-    if spec.use_rope:
-        q = apply_rope(q, positions, spec.rope_theta)
-        k = apply_rope(k, positions, spec.rope_theta)
-    return q, k, v
+    return tuple(_project(params, spec, x, positions, n) for n in "qkv")
+
+
+def project_kv(params, spec: AttnSpec, x, positions):
+    """k, v of x (W, B, S, KV, Dh) (:func:`_project`)."""
+    return (_project(params, spec, x, positions, "k"),
+            _project(params, spec, x, positions, "v"))
 
 
 def _gqa_expand(k, n_heads):
@@ -366,6 +380,32 @@ def attend_heads(fn, p_attn, spec: AttnSpec, x, *args, **kw):
     return DTensor.from_local(part, mesh, (Partial(),))
 
 
+def heads_kv(fn, p_attn, spec: AttnSpec, x, *args):
+    """``fn(p_attn, spec, x, *args) -> (k, v)``, keys and values (W, B, S,
+    KV, Dh) projected for a cache, on DTensor leaves whose query heads
+    :func:`head_shards` splits: each rank projects from local tensors —
+    its own KV heads where they split alike (k/v ``Shard`` on the KV dim),
+    every KV head from the leaves gathered whole where they do not
+    (``Replicate``) — as :func:`attend_heads` runs the attention: DTensor's
+    einsum would merge a sharded KV dim into its batch, which it refuses
+    where the dim is 1 long (one KV head at ``model`` 1).  Elsewhere
+    ``fn`` itself."""
+    mesh = head_shards(p_attn)
+    if mesh is None:
+        return fn(p_attn, spec, x, *args)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    split = _kv_split(p_attn)
+    get = (lambda t: t.to_local()) if split else _whole
+    p = {n: tree_map(get, t) if isinstance(t, dict) else get(t)
+         for n, t in p_attn.items() if n in _KV_HEAD_DIMS or n == "k_norm"}
+    if split:
+        spec = dataclasses.replace(
+            spec, n_kv_heads=spec.n_kv_heads // mesh.size())
+    place = (Shard(3),) if split else (Replicate(),)
+    return tuple(DTensor.from_local(t, mesh, place) for t in
+                 fn(p, spec, _whole(x), *map(_whole, args)))
+
+
 def attention_decode(params, spec: AttnSpec, x, pos: int, cache, *,
                      window: int | None = None):
     """One query position against a KV cache.  x: (W, B, 1, D); pos: host
@@ -376,20 +416,156 @@ def attention_decode(params, spec: AttnSpec, x, pos: int, cache, *,
     scores are taken over positions 0..pos only, and with a ``window``
     over pos - window + 1..pos only: the reference masks the rest to
     -1e30, which softmax turns into exact zeros.  The bf16 cache is read
-    as f32 at the products, as JAX promotes ``f32 q · bf16 k``."""
+    as f32 at the products, as JAX promotes ``f32 q · bf16 k``.  A cache
+    placed by ``launch/sharding.py cache_pspec`` (DTensor leaves,
+    launch/tensor_parallel.py) takes :func:`_decode_placed`."""
+    if placed(cache["k"]):
+        return _decode_placed(params, spec, x, pos, cache, window)
     positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(params, spec, x, positions)
     cache["k"][:, :, pos] = k_new[:, :, 0].to(cache["k"].dtype)
     cache["v"][:, :, pos] = v_new[:, :, 0].to(cache["v"].dtype)
-    lo = 0 if window is None else max(0, pos - window + 1)
-    k = _gqa_expand(cache["k"][:, :, lo:pos + 1].float(), spec.n_heads)
-    v = _gqa_expand(cache["v"][:, :, lo:pos + 1].float(), spec.n_heads)
-    scale = spec.head_dim ** -0.5
-    s = torch.einsum("wbqhk,wbshk->wbhqs", q * scale, k)
-    s = _softcap(s.float(), spec.softcap)
-    p = F.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("wbhqs,wbshk->wbqhk", p, v)
+    lo = _window_start(pos, window)
+    out = attend_keys(spec, q, cache["k"][:, :, lo:pos + 1],
+                      cache["v"][:, :, lo:pos + 1], x.dtype)
     return torch.einsum("wbqhk,whkd->wbqd", out, params["wo"])
+
+
+def _window_start(pos: int, window: int | None) -> int:
+    return 0 if window is None else max(0, pos - window + 1)
+
+
+def attend_keys(spec: AttnSpec, q, k, v, dtype):
+    """Queries q (W, B, Sq, H, Dh) against every one of the keys k/v
+    (W, B, S, KV, Dh), read as f32: the scale on q before the product,
+    the softcap, the softmax in f32, its probabilities cast to ``dtype``.
+    Returns (W, B, Sq, H, Dh)."""
+    k = _gqa_expand(k.float(), spec.n_heads)
+    v = _gqa_expand(v.float(), spec.n_heads)
+    s = torch.einsum("wbqhk,wbshk->wbhqs", q * spec.head_dim ** -0.5, k)
+    p = F.softmax(_softcap(s.float(), spec.softcap), dim=-1).to(dtype)
+    return torch.einsum("wbhqs,wbshk->wbqhk", p, v)
+
+
+# ---------------------------------------------------------------------------
+# decode against a placed cache (the tensor-parallel serve)
+# ---------------------------------------------------------------------------
+
+def placed(t) -> bool:
+    """Whether ``t`` is a DTensor (a leaf placed over a mesh)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _whole(t):
+    """A DTensor's whole value on every rank (all-gathered, or summed where
+    it is a ``Partial``) as a plain tensor; a plain tensor itself."""
+    return t.full_tensor() if placed(t) else t
+
+
+def cache_split(c) -> str:
+    """How ``cache_pspec`` placed a cache leaf c (..., B, S, KV, Dh) on its
+    1-D mesh: "heads" (KV heads sharded), "seq" (the sequence sharded) or
+    "whole" (replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+    (p,) = c.placements
+    if isinstance(p, Replicate):
+        return "whole"
+    if isinstance(p, Shard) and p.dim in (c.ndim - 2, c.ndim - 3):
+        return "heads" if p.dim == c.ndim - 2 else "seq"
+    raise ValueError(f"a cache leaf placed {c.placements}: cache_pspec "
+                     "shards the KV heads or the sequence, or replicates")
+
+
+def _decode_placed(params, spec: AttnSpec, x, pos: int, cache, window):
+    """:func:`attention_decode` on a cache placed by ``cache_pspec``.
+
+    * KV heads split: each rank holds its KV heads at every position, and
+      the query heads split alike (``head_shards``), so each rank runs the
+      plain decode on its heads and its local shards (``attend_heads``,
+      the write at ``pos`` its own) and the output projection sums the
+      ranks' parts.
+    * sequence split: q, k and v of this token are made whole on every
+      rank (the projections' ``Partial`` sums over a sharded d_model
+      reduced, sharded heads gathered: a token's worth, not the cache's).
+      The rank holding ``pos`` writes k/v there; every rank scores ALL
+      query heads against its own positions of [lo, pos]
+      (:func:`split_attend`), the parts combined over the mesh; then
+      ``wo`` (head- or d_model-sharded) takes each rank's share.  Where
+      the query heads split but the KV heads do not (paligemma's 4/1 at
+      model 2), the KV head is whole on no rank, so the ranks compute
+      every head's scores on their range rather than their own heads'.
+    * replicated: every rank writes and attends the whole cache, as the
+      plain decode does, on the whole q, k and v.
+
+    The cache is never sliced, gathered or redistributed as a DTensor:
+    each rank reads its local shard."""
+    from torch.distributed.tensor import DTensor, Replicate
+    kc, vc = cache["k"], cache["v"]
+    split = cache_split(kc)
+    if split == "heads":
+        if head_shards(params) is None:
+            raise ValueError("a cache split over KV heads needs the query "
+                             "and KV heads split alike (param_pspec)")
+        return attend_heads(attention_decode, params, spec, x, pos,
+                            {"k": kc.to_local(), "v": vc.to_local()},
+                            window=window)
+    positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = map(_whole, _project_qkv(params, spec, x, positions))
+    kl, vl = kc.to_local(), vc.to_local()
+    lo = _window_start(pos, window)
+    mesh = kc.device_mesh
+    if split == "whole":
+        kl[:, :, pos] = k_new[:, :, 0].to(kl.dtype)
+        vl[:, :, pos] = v_new[:, :, 0].to(vl.dtype)
+        out = attend_keys(spec, q, kl[:, :, lo:pos + 1],
+                          vl[:, :, lo:pos + 1], q.dtype)
+    else:
+        n = kl.shape[2]
+        r0 = mesh.get_local_rank() * n           # this rank's first position
+        if r0 <= pos < r0 + n:                   # the owner of pos writes
+            kl[:, :, pos - r0] = k_new[:, :, 0].to(kl.dtype)
+            vl[:, :, pos - r0] = v_new[:, :, 0].to(vl.dtype)
+        a, b = max(lo, r0) - r0, max(min(pos + 1, r0 + n) - r0, 0)
+        out = split_attend(spec, q, kl[:, :, a:max(a, b)],
+                           vl[:, :, a:max(a, b)], mesh)
+    out = DTensor.from_local(out, mesh, (Replicate(),))
+    return torch.einsum("wbqhk,whkd->wbqd", out, params["wo"])
+
+
+def split_attend(spec: AttnSpec, q, k, v, mesh):
+    """:func:`attend_keys` of one query position over keys split along the
+    sequence over the 1-D ``mesh`` (flash-decoding): this rank's keys k/v
+    (W, B, S_r, KV, Dh), S_r possibly 0, give the partial max m, sum of
+    exponentials l and weighted values acc of every head; the ranks'
+    parts are all-gathered and combined, each scaled by exp(m_r - max).
+    A rank with no key adds exactly nothing (m_r = -inf scales by 0, not
+    by exp(-inf - -inf)).  q: (W, B, 1, H, Dh), whole on every rank.
+    Returns (W, B, 1, H, Dh), the same on every rank."""
+    from torch.distributed.tensor import DTensor, Shard
+    W, B, _, H, Dh = q.shape
+    if k.shape[2]:
+        k = _gqa_expand(k.float(), H)
+        v = _gqa_expand(v.float(), H)
+        s = torch.einsum("wbqhk,wbshk->wbhqs", q * spec.head_dim ** -0.5, k)
+        s = _softcap(s.float(), spec.softcap)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        acc = torch.einsum("wbhqs,wbshk->wbhqk", p, v)
+    else:
+        m = torch.full((W, B, H, 1, 1), -math.inf, device=q.device)
+        l = torch.zeros((W, B, H, 1, 1), device=q.device)
+        acc = torch.zeros((W, B, H, 1, Dh), device=q.device)
+    part = torch.cat([m, l, acc], dim=-1)[None]
+    parts = DTensor.from_local(part, mesh, (Shard(0),)).full_tensor()
+    m_r = parts[..., :1]
+    top = m_r.amax(dim=0)
+    scale = torch.where(m_r == -math.inf, torch.zeros((), device=q.device),
+                        torch.exp(m_r - top))
+    out = ((parts[..., 2:] * scale).sum(dim=0)
+           / (parts[..., 1:2] * scale).sum(dim=0))
+    return out.to(q.dtype).permute(0, 1, 3, 2, 4)
 
 
 def init_kv_cache(batch, max_seq, n_kv_heads, head_dim,

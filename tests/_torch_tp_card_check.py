@@ -1,16 +1,27 @@
-"""tests/_torch_tp_ranks.py's 4 gloo CPU ranks on a machine without jax
-(the card's, whose torch is stricter about DTensor views than this
-one's), against the port's single-device pytree step there:
+"""tests/_torch_tp_ranks.py's and tests/_torch_tp_serve_ranks.py's 4
+gloo CPU ranks on a machine without jax (the card's, whose torch is
+stricter about DTensor views than this one's), against the port's
+single-device pytree step and serve there:
 
     PYTHONPATH=src python tests/_torch_tp_card_check.py OUT_DIR
 
-The cases are the test's (tests/test_torch_tensor_parallel.py): its
+Training: the cases of tests/test_torch_tensor_parallel.py — its
 configs, weights, tokens and frames or patches from the same numpy
 seeds; the draws are chosen here without jax (shifts 1 then 2 on the
 first group holding a replicated leaf, then group 0).  Each case is held
 to the test's tolerances against the single-device step: losses within
-rel 1e-5, params within rtol 1e-5 and atol 1e-5, gates equal.  Prints a
-line a case; exits 1 if a rank fails or a case misses.
+rel 1e-5, params within rtol 1e-5 and atol 1e-5, gates equal.
+
+Serving: the cases of tests/test_torch_tensor_parallel_serve.py, on
+numpy weights (worker 0's of the training cases' draw; that test takes
+the reference's initialisation, which needs jax) and prompts, frames and
+patches from numpy seeds.  Each is held to that test's gates against the
+single-device serve: the prefill's logits and each decode step's (from
+an f32 copy of the single-device cache) within 1e-5 of the largest,
+generate(mesh=)'s tokens equal, every cache leaf placed by cache_pspec,
+a decode step's collectives the same at two cache lengths.
+
+Prints a line a case; exits 1 if a rank fails or a case misses.
 """
 import pathlib
 import sys
@@ -19,6 +30,7 @@ import numpy as np
 import torch
 
 import _torch_tp_ranks as R
+import _torch_tp_serve_ranks as S
 from repro_torch.configs.registry import get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import asgd as tasgd
@@ -82,9 +94,104 @@ def single(arch, inputs, batches):
                      for p, x in SH.tree_paths(params)}
 
 
+def serve_inputs(name, seed):
+    """The serve rank program's inputs of one case."""
+    arch, rows, prompt = S.CASES[name]
+    cfg = R.config(arch, get_arch)
+    out = {f"{name}.w.{k}": v[0] for k, v in R.weights(cfg, seed).items()}
+    rng = np.random.default_rng(seed + 300)
+    out[f"{name}.tokens"] = rng.integers(0, cfg.vocab, (rows, prompt)) \
+        .astype(np.int32)
+    if cfg.frontend:
+        n = cfg.encoder_seq if cfg.frontend == "audio" else cfg.prefix_len
+        out[f"{name}.stub"] = (0.1 * rng.standard_normal(
+            (rows, n, cfg.d_model))).astype(np.float32)
+    return out
+
+
+def serve_placements_ok(rk, name, cfg, rows, length):
+    """Every recorded cache leaf placed as cache_pspec says."""
+    sizes = dict(zip(("data", "model"), R.MESH))
+    meta = TM.init_cache(cfg, rows, length, device="meta")
+    for path, x in SH.tree_paths(meta):
+        spec = SH.cache_pspec(path, x, cfg, axis_sizes=sizes)
+        dims = [d for d, a in enumerate(spec) if a == "model"]
+        want = f"S{dims[0]}" if dims else "R"
+        for t in range(S.NEW):
+            if str(rk[f"{name}.{t}.cache.{R.path_key(path)}.placement"]) \
+                    != want:
+                return False
+    return True
+
+
+def serve_check(out):
+    """The serve ranks against the single-device serve; True if every
+    case meets the gates."""
+    out.mkdir(parents=True, exist_ok=True)
+    inputs = {}
+    for seed, name in enumerate(S.CASES):
+        inputs.update(serve_inputs(name, seed))
+    procs, logs = R.start_ranks(out, inputs, script=S.__file__)
+    torch.set_num_threads(1)
+    try:
+        want = {}
+        for name, (arch, _, prompt) in S.CASES.items():
+            cfg = R.config(arch, get_arch)
+            head = f"{name}.w."
+            params = params_from_numpy(R.nest({
+                k[len(head):]: v for k, v in inputs.items()
+                if k.startswith(head)}))
+            logits, toks, _ = S.serve_plain(
+                cfg, params, S.batch_of(inputs, name, cfg), prompt)
+            want[name] = (logits[0].numpy(), toks.numpy())
+        codes = [p.wait(timeout=TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for f in logs:
+            f.close()
+    print(f"torch {torch.__version__}: serve ranks exited {codes}",
+          flush=True)
+    if any(codes):
+        print((out / f"rank{codes.index(next(filter(None, codes)))}.log")
+              .read_text()[-3000:])
+        return False
+    got = [dict(np.load(out / f"rank{r}.npz")) for r in range(R.WORLD)]
+    ok = all(np.array_equal(rk["greedy.got"], rk["greedy.want"])
+             for rk in got)
+    for name, (arch, rows, prompt) in S.CASES.items():
+        cfg = R.config(arch, get_arch)
+        prefill, toks = want[name]
+
+        def rel(a, b):
+            return float(np.abs(a - b).max()
+                         / np.abs(b[..., :cfg.vocab]).max())
+        errs = [rel(rk[f"{name}.0.logits"], prefill[rk[f"{name}.rows"]])
+                for rk in got]
+        errs += [rel(rk[f"{name}.forced.{t}"],
+                     rk[f"{name}.forced_plain.{t}"][rk[f"{name}.rows"]])
+                 for rk in got for t in range(1, S.NEW)]
+        same_toks = all(np.array_equal(rk[f"{name}.generate"], toks)
+                        for rk in got)
+        placed = all(serve_placements_ok(rk, name, cfg, rows,
+                                         S.cache_len(cfg, prompt))
+                     for rk in got)
+        comms = all(list(rk[f"{name}.comms"])
+                    == list(rk[f"{name}.comms_long"]) for rk in got)
+        good = max(errs) <= 1e-5 and same_toks and placed and comms
+        ok &= good
+        print(f"serve {name}: max logit err {max(errs):.3e} of the largest, "
+              f"tokens equal {same_toks}, placements {placed}, collectives "
+              f"alike at two lengths {comms}: "
+              f"{'ok' if good else 'MISSED'}", flush=True)
+    return ok
+
+
 def main(out_dir):
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
+    serve_ok = serve_check(out / "serve")
     inputs, batches = {}, {}
     for seed, arch in enumerate(R.ARCHS):
         ins, batches[arch] = case_inputs(arch, seed)
@@ -121,7 +228,7 @@ def main(out_dir):
         ok &= good
         print(f"{arch}: loss rel {rel:.3e}, gates equal {gates}, max |param "
               f"diff| {err:.3e}: {'ok' if good else 'MISSED'}", flush=True)
-    return 0 if ok else 1
+    return 0 if ok and serve_ok else 1
 
 
 if __name__ == "__main__":

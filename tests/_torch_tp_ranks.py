@@ -254,11 +254,11 @@ def partial_plus_replicated(mesh, out):
     out["probe.grad"] = g.redistribute(mm, b.placements).to_local().numpy()
 
 
-def start_ranks(out_dir, inputs):
+def start_ranks(out_dir, inputs, script=__file__):
     """Writes ``inputs`` to OUT_DIR/inputs.npz and starts the WORLD ranks
-    of this program on them (loopback only, one thread and no GPU a
-    rank), each logging to OUT_DIR/rank<RANK>.log.  Returns (procs,
-    logs)."""
+    of ``script`` (this program, or another rank program of the same
+    command line) on them (loopback only, one thread and no GPU a rank),
+    each logging to OUT_DIR/rank<RANK>.log.  Returns (procs, logs)."""
     out_dir = pathlib.Path(out_dir)
     np.savez(out_dir / "inputs.npz", **inputs)
     src = pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -266,7 +266,7 @@ def start_ranks(out_dir, inputs):
            "GLOO_SOCKET_IFNAME": "lo", "CUDA_VISIBLE_DEVICES": ""}
     logs = [open(out_dir / f"rank{r}.log", "w") for r in range(WORLD)]
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), str(WORLD),
+        [sys.executable, str(script), str(r), str(WORLD),
          str(out_dir / "store"), str(out_dir / "inputs.npz"), str(out_dir)],
         env=env, stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(WORLD)]

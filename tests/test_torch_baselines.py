@@ -23,6 +23,8 @@ from repro.core.asgd import ASGDConfig as JConfig
 from repro_torch.core import baselines as tb
 from repro_torch.core.asgd import ASGDConfig as TConfig
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 W, ROUNDS, B, EPS = 8, 40, 64, 0.1
 ERR_RTOL, STATE_ATOL = 1e-5, 1e-5
 

@@ -44,6 +44,8 @@ from repro_torch.core import packing as tpk
 from repro_torch.core.tree import flatten_sorted, tree_map
 from repro_torch.launch import train as ttrain
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 W = 4
 
 

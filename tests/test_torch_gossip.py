@@ -28,6 +28,8 @@ from repro_torch.core.packing import pack_spec_w as tpack_spec_w
 from repro_torch.core.packing import pack_w as tpack_w
 from repro_torch.core.tree import flatten_sorted, tree_map
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 W = 4
 
 

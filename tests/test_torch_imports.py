@@ -94,3 +94,14 @@ def test_mesh_slice_modules_are_checked(module):
 def test_dryrun_slice_modules_are_checked(module):
     """The dry-run slice's modules are among the files checked above."""
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("name", ["_torch_tp_ranks.py",
+                                  "_torch_tp_serve_ranks.py",
+                                  "_torch_tp_card_check.py"])
+def test_rank_programs_import_neither_jax_nor_reference(name):
+    """The tensor-parallel rank programs and their card check run on a
+    machine without jax (the card's), so they import the port only."""
+    path = ROOT / "tests" / name
+    bad = imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"tests/{name} imports {sorted(bad)}"

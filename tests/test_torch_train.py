@@ -36,6 +36,8 @@ from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import init_inner_state, make_train_step
 from repro_torch.optim import optimizers as topt
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 W, BATCH, SEQ, STEPS = 4, 2, 32, 3
 
 

@@ -5,7 +5,7 @@ against the reference, on the reference's weights carried over as numpy:
 
 * the forward's logits, the loss with the router's aux term and every
   gradient leaf against the reference's ``loss_fn`` under
-  ``jax.value_and_grad``;
+  ``jax.value_and_grad``, jitted;
 * 3 pipelined int8 steps and one pytree asgd step against the reference's
   jitted train step on the same batches and gossip draws;
 * checkpoints of the trainer both ways: a reference trainer's --save file
@@ -49,6 +49,8 @@ from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import (init_inner_state, make_train_step,
                                       tree_loss_and_grad)
 from repro_torch.models import model as TM
+
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b"]
 W, BATCH, SEQ, STEPS = 4, 2, 32, 3
@@ -108,16 +110,20 @@ def test_forward_loss_and_gradients_match_reference(arch):
     losses, grads = tree_loss_and_grad(tcfg, tp, {"tokens":
                                                   torch.from_numpy(tokens)})
     assert bool((aux > 0.5).all())       # the router's term is in the loss
+    # the reference jitted once for both workers, as the other archs'
+    # tests run it (eager dispatch of its 16 groups costs more)
+    jforward = jax.jit(lambda p, b: JM.forward(cfg, p, b, remat=False))
+    jloss_grad = jax.jit(jax.value_and_grad(
+        lambda p, b: JM.loss_fn(cfg, p, b, remat=False)))
     for w in range(2):
         jp = jax.tree.map(lambda x: jnp.asarray(x[w]), wnp)
         jb = {"tokens": jnp.asarray(tokens[w])}
-        jlogits, jaux = JM.forward(cfg, jp, jb, remat=False)
+        jlogits, jaux = jforward(jp, jb)
         scale = float(np.abs(np.asarray(jlogits)).max())
         assert float(np.abs(logits[w].detach().numpy()
                             - np.asarray(jlogits)).max()) <= 1e-4 * scale
         np.testing.assert_allclose(float(aux[w]), float(jaux), rtol=1e-5)
-        jloss, jgrad = jax.value_and_grad(
-            lambda p: JM.loss_fn(cfg, p, jb, remat=False))(jp)
+        jloss, jgrad = jloss_grad(jp, jb)
         np.testing.assert_allclose(float(losses[w]), float(jloss),
                                    rtol=1e-5)
         jl, tl = jax.tree.leaves(jgrad), flatten_sorted(grads)[0]

@@ -32,6 +32,8 @@ from repro_torch.core import gossip as tg
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import init_inner_state, make_train_step
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 W, BATCH, SEQ, STEPS = 4, 2, 32, 2
 
 

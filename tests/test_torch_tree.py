@@ -23,6 +23,8 @@ from repro_torch.core.gossip import GossipState
 from repro_torch.core.tree import flatten_sorted, tree_map, unflatten
 from repro_torch.launch import train as ttrain
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def np_tree(seed):
     rng = np.random.default_rng(seed)
