@@ -62,7 +62,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      steps each against the plain pytree step
      from the same starts, batches and draws (bitwise, or else within
      1e-5 with the gates equal), B2r/B2a once a round on its path, both
-     steps' times and peaks;
+     steps' times and peaks; [tp-serve] the tensor-parallel serve of the
+     attention archs against the plain one; [tp-ssm] the 'S' and 'R'
+     archs tensor-parallel: full mamba2-370m (W=4, seq 512) and
+     recurrentgemma-9b at full width cut to one (R, R, L) cycle (W=1) 3
+     steps each against the plain pytree step, and full mamba2-370m and
+     recurrentgemma-9b served (prompt 2048, batch 4, 16 tokens) against
+     the plain generate; B5/B5b as often on each tensor-parallel path as
+     on the plain one;
   7. [fused-update] asgd_update(use_fused=True) on one full smollm-135m
      replica at P=1 and P=4 against use_fused=False, counters zeroed
      before and read after — B3r/B3a launched;
@@ -1613,54 +1620,63 @@ def phase_tp(torch, device):
         try:
             mesh = MM.make_host_mesh(1, 1, device=device)
             for arch, cfg, wn, seq in runs:
-                tp = tp_run(torch, device, cfg, wn, seq, mesh)
-                plain = tp_run(torch, device, cfg, wn, seq, None)
-                bitwise = (tp["losses"] == plain["losses"] and all(
-                    torch.equal(a, b)
-                    for a, b in zip(tp["params"], plain["params"])))
-                err = max(float((a - b).abs().max())
-                          for a, b in zip(tp["params"], plain["params"]))
-                rel = max(abs(a - b) / abs(b)
-                          for a, b in zip(tp["losses"], plain["losses"]))
-                gates = all(torch.equal(a, b)
-                            for a, b in zip(tp["gates"], plain["gates"]))
-                if not bitwise and not (rel <= 1e-5 and gates and all(
-                        torch.allclose(a, b, rtol=1e-5, atol=1e-5)
-                        for a, b in zip(tp["params"], plain["params"]))):
-                    raise AssertionError(
-                        f"[tp] {arch}: tensor-parallel vs plain step: loss "
-                        f"rel {rel:.3e}, gates equal {gates}, max |param "
-                        f"diff| {err:.3e}")
+                tp, plain = tp_train_pair(torch, device, "[tp]", cfg, wn,
+                                          seq, mesh)
                 for name in (REDUCE_W, APPLY_W):
-                    want = TP_STEPS
-                    if tp["counts"].get(name, 0) != want:
-                        raise AssertionError(
-                            f"[tp] {arch}: {name} launched "
-                            f"{tp['counts'].get(name, 0)} times in "
-                            f"{TP_STEPS} rounds, want {want}: "
-                            f"{tp['counts']}")
                     total[name] = total.get(name, 0) + tp["counts"][name]
-                n_good = [float(g.sum()) for g in tp["gates"]]
-                match = ("bitwise" if bitwise
-                         else "within rel/atol 1e-5, gates equal")
-                stub = TP_STUB.get(cfg.frontend)
-                extra = f", {stub} {cfg.encoder_seq or cfg.prefix_len}" \
-                    if stub else ""
-                log(f"[tp] {arch} (n_layers {cfg.n_layers}, W={wn}, batch "
-                    f"2, seq {seq}{extra}) on a {dist.get_backend()} "
-                    f"{tuple(mesh.shape)} {mesh.mesh_dim_names} mesh: "
-                    f"{TP_STEPS} steps {match} the plain pytree step (losses "
-                    f"{[round(l, 6) for l in tp['losses']]}, max |param "
-                    f"diff| {err:.3e}, n_good {n_good}); launches on the "
-                    f"tensor-parallel path {tp['counts']}; step "
-                    f"{tp['ms']:.2f} ms vs plain {plain['ms']:.2f} ms "
-                    f"(median of {TP_TIMED}, after the checked steps); "
-                    f"peak {tp['peak_gib']:.2f} GiB vs "
-                    f"{plain['peak_gib']:.2f} GiB")
                 del tp, plain
         finally:
             dist.destroy_process_group()
     return total
+
+
+def tp_train_pair(torch, device, tag, cfg, wn, seq, mesh):
+    """:func:`tp_run` of ``cfg`` tensor-parallel on ``mesh`` and plain,
+    held together: bitwise, or else losses within rel 1e-5, params within
+    atol 1e-5 and rel 1e-5, gates equal; B2r/B2a launched once a round on
+    the tensor-parallel path; logged under ``tag``.  Returns both runs."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.gossip_blend.kernel import APPLY_W, REDUCE_W
+
+    tp = tp_run(torch, device, cfg, wn, seq, mesh)
+    plain = tp_run(torch, device, cfg, wn, seq, None)
+    arch = cfg.name
+    bitwise = (tp["losses"] == plain["losses"] and all(
+        torch.equal(a, b) for a, b in zip(tp["params"], plain["params"])))
+    err = max(float((a - b).abs().max())
+              for a, b in zip(tp["params"], plain["params"]))
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(tp["losses"], plain["losses"]))
+    gates = all(torch.equal(a, b)
+                for a, b in zip(tp["gates"], plain["gates"]))
+    if not bitwise and not (rel <= 1e-5 and gates and all(
+            torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+            for a, b in zip(tp["params"], plain["params"]))):
+        raise AssertionError(
+            f"{tag} {arch}: tensor-parallel vs plain step: loss rel "
+            f"{rel:.3e}, gates equal {gates}, max |param diff| {err:.3e}")
+    for name in (REDUCE_W, APPLY_W):
+        want = TP_STEPS
+        if tp["counts"].get(name, 0) != want:
+            raise AssertionError(
+                f"{tag} {arch}: {name} launched "
+                f"{tp['counts'].get(name, 0)} times in {TP_STEPS} rounds, "
+                f"want {want}: {tp['counts']}")
+    n_good = [float(g.sum()) for g in tp["gates"]]
+    match = "bitwise" if bitwise else "within rel/atol 1e-5, gates equal"
+    stub = TP_STUB.get(cfg.frontend)
+    extra = f", {stub} {cfg.encoder_seq or cfg.prefix_len}" if stub else ""
+    log(f"{tag} {arch} (n_layers {cfg.n_layers}, W={wn}, batch 2, seq "
+        f"{seq}{extra}) on a {dist.get_backend()} {tuple(mesh.shape)} "
+        f"{mesh.mesh_dim_names} mesh: {TP_STEPS} steps {match} the plain "
+        f"pytree step (losses {[round(l, 6) for l in tp['losses']]}, max "
+        f"|param diff| {err:.3e}, n_good {n_good}); launches on the "
+        f"tensor-parallel path {tp['counts']}; step {tp['ms']:.2f} ms vs "
+        f"plain {plain['ms']:.2f} ms (median of {TP_TIMED}, after the "
+        f"checked steps); peak {tp['peak_gib']:.2f} GiB vs "
+        f"{plain['peak_gib']:.2f} GiB")
+    return tp, plain
 
 
 TP_SERVE_BATCH, TP_SERVE_NEW = 4, 16
@@ -1674,6 +1690,31 @@ TP_SERVE_RUNS = (("smollm-135m", None, 2048),
                  ("gemma3-1b", None, 2048),
                  ("paligemma-3b", 2, 128),
                  ("whisper-tiny", None, 416))
+
+
+def place_serve_consuming(TP, mesh, params):
+    """``TP.place_serve_params(mesh, params)`` a leaf at a time, each plain
+    leaf dropped from ``params`` once placed: a sharded leaf is copied
+    even on one rank, and a whole recurrentgemma-9b (35 GiB) held twice
+    would nearly fill the card."""
+    from repro_torch.launch import sharding as SH
+
+    out = {}
+    for path, _ in SH.tree_paths(params):
+        node, one = params, {}
+        for name in path[:-1]:
+            node = node[name]
+        leaf = one
+        for name in path[:-1]:
+            leaf = leaf.setdefault(name, {})
+        leaf[path[-1]] = node.pop(path[-1])
+        placed = TP.place_serve_params(mesh, one)
+        dest = out
+        for name in path[:-1]:
+            placed, dest = placed[name], dest.setdefault(name, {})
+        dest[path[-1]] = placed[path[-1]]
+        del one, leaf, placed
+    return out
 
 
 def tp_serve_run(torch, device, cfg, prompt, mesh):
@@ -1692,7 +1733,7 @@ def tp_serve_run(torch, device, cfg, prompt, mesh):
     torch.cuda.empty_cache()
     params = init_model(cfg, 0, device=device)
     if mesh is not None:
-        params = TP.place_serve_params(mesh, params)
+        params = place_serve_consuming(TP, mesh, params)
     # the peak while serving (placement's own transient left out)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1751,39 +1792,128 @@ def phase_tp_serve(torch, device):
                 cfg = get_arch(arch)
                 if layers is not None:
                     cfg = dataclasses.replace(cfg, n_layers=layers)
-                tp = tp_serve_run(torch, device, cfg, prompt, mesh)
-                plain = tp_serve_run(torch, device, cfg, prompt, None)
-                pairs = list(zip(tp["logits"], plain["logits"]))
-                bitwise = all(torch.equal(a, b) for a, b in pairs)
-                err = max(float((a - b).abs().max()
-                                / b[:, :cfg.vocab].abs().max())
-                          for a, b in pairs)
-                if not torch.equal(tp["tokens"], plain["tokens"]) or not (
-                        bitwise or err <= TP_SERVE_TOL):
-                    raise AssertionError(
-                        f"[tp-serve] {arch}: tokens equal "
-                        f"{torch.equal(tp['tokens'], plain['tokens'])}, "
-                        f"largest logit difference {err:.3e} of the "
-                        f"largest logit (gate {TP_SERVE_TOL})")
-                stub = {"audio": f", {cfg.encoder_seq} frames",
-                        "vision": f", {cfg.prefix_len} patches"}.get(
-                            cfg.frontend, "")
-                log(f"[tp-serve] {arch} (n_layers {cfg.n_layers}, batch "
-                    f"{TP_SERVE_BATCH}, prompt {prompt}{stub}, "
-                    f"{TP_SERVE_NEW} tokens) on a {dist.get_backend()} "
-                    f"{tuple(mesh.shape)} {mesh.mesh_dim_names} mesh: tokens "
-                    f"equal, logits of the prefill and {len(pairs) - 1} "
-                    f"decode steps "
-                    f"{'bitwise' if bitwise else f'within {err:.3e}'} the "
-                    f"plain serve's; prefill {tp['prefill_ms']:.3f} ms vs "
-                    f"plain {plain['prefill_ms']:.3f} ms, decode "
-                    f"{tp['decode_ms_per_token']:.3f} vs "
-                    f"{plain['decode_ms_per_token']:.3f} ms a token; peak "
-                    f"{tp['peak_gib']:.2f} GiB vs {plain['peak_gib']:.2f} GiB")
-                del tp, plain
+                tp_serve_pair(torch, device, "[tp-serve]", cfg, prompt, mesh)
         finally:
             dist.destroy_process_group()
     log(f"[tp-serve] phase {time.perf_counter() - t0:.1f} s")
+
+
+def tp_serve_pair(torch, device, tag, cfg, prompt, mesh):
+    """:func:`tp_serve_run` of ``cfg`` tensor-parallel on ``mesh`` and
+    plain, each with the launch counters zeroed before and read after,
+    held together: tokens equal, and the logits of the prefill and of
+    every decode step bitwise, or else within TP_SERVE_TOL of the largest;
+    logged under ``tag``.  Returns the tensor-parallel path's launch
+    counts and the plain path's."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+
+    K.reset_launch_counts()
+    tp = tp_serve_run(torch, device, cfg, prompt, mesh)
+    tp_counts = K.launch_counts()
+    K.reset_launch_counts()
+    plain = tp_serve_run(torch, device, cfg, prompt, None)
+    plain_counts = K.launch_counts()
+    arch = cfg.name
+    pairs = list(zip(tp["logits"], plain["logits"]))
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    err = max(float((a - b).abs().max() / b[:, :cfg.vocab].abs().max())
+              for a, b in pairs)
+    if not torch.equal(tp["tokens"], plain["tokens"]) or not (
+            bitwise or err <= TP_SERVE_TOL):
+        raise AssertionError(
+            f"{tag} {arch}: tokens equal "
+            f"{torch.equal(tp['tokens'], plain['tokens'])}, largest logit "
+            f"difference {err:.3e} of the largest logit (gate "
+            f"{TP_SERVE_TOL})")
+    stub = {"audio": f", {cfg.encoder_seq} frames",
+            "vision": f", {cfg.prefix_len} patches"}.get(cfg.frontend, "")
+    log(f"{tag} {arch} (n_layers {cfg.n_layers}, batch {TP_SERVE_BATCH}, "
+        f"prompt {prompt}{stub}, {TP_SERVE_NEW} tokens) on a "
+        f"{dist.get_backend()} {tuple(mesh.shape)} {mesh.mesh_dim_names} "
+        f"mesh: tokens equal, logits of the prefill and {len(pairs) - 1} "
+        f"decode steps {'bitwise' if bitwise else f'within {err:.3e}'} the "
+        f"plain serve's; prefill {tp['prefill_ms']:.3f} ms vs plain "
+        f"{plain['prefill_ms']:.3f} ms, decode "
+        f"{tp['decode_ms_per_token']:.3f} vs "
+        f"{plain['decode_ms_per_token']:.3f} ms a token; peak "
+        f"{tp['peak_gib']:.2f} GiB vs {plain['peak_gib']:.2f} GiB; launches "
+        f"(two generate runs each) {tp_counts} vs {plain_counts}")
+    return tp_counts, plain_counts
+
+
+# [tp-ssm]'s runs.  Training: (arch, layers (None: all), W, seq), batch 2:
+# mamba2-370m whole at W 4 (1.5 GiB a replica; the pytree engine holds ~9
+# copies); recurrentgemma-9b at full width cut to one (R, R, L) cycle at
+# W 1 (6.9 GiB a replica, the 1 GiB embedding included: W 2 would not
+# fit).  Serving: (arch, prompt), both whole, batch TP_SERVE_BATCH,
+# TP_SERVE_NEW tokens.
+TP_SSM_TRAIN = (("mamba2-370m", None, W, 512),
+                ("recurrentgemma-9b", 3, 1, 512))
+TP_SSM_SERVE = (("mamba2-370m", 2048), ("recurrentgemma-9b", 2048))
+
+
+def phase_tp_ssm(torch, device):
+    """[tp-ssm]: tensor parallelism for the 'S' (Mamba-2 SSD) and 'R'
+    (RG-LRU) archs at one rank of an NCCL group, a (1, 1) ("data",
+    "model") mesh: each of TP_SSM_TRAIN's pytree steps against the plain
+    pytree step (:func:`tp_train_pair`: bitwise or within 1e-5, gates
+    equal, B2r/B2a once a round), and each of TP_SSM_SERVE's generate
+    against the plain one (:func:`tp_serve_pair`: tokens equal, logits
+    bitwise or within TP_SERVE_TOL).  B5 and B5b launch as often on the
+    tensor-parallel path as on the plain one — the counters zeroed before
+    each path and read after — and at least once where the config has
+    'S' layers.  Returns the tensor-parallel paths' B5/B5b launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.ssd_scan.kernel import SCAN, SCAN_BWD
+    from repro_torch.launch import mesh as MM
+
+    def same_scans(arch, what, tp, plain, names):
+        for name in names:
+            n = tp.get(name, 0)
+            if n != plain.get(name, 0) or (n == 0 and "S" in get_arch(
+                    arch).pattern_cycle):
+                raise AssertionError(
+                    f"[tp-ssm] {arch} {what}: {name} launched {n} times on "
+                    f"the tensor-parallel path, {plain.get(name, 0)} on the "
+                    "plain one")
+            total[name] = total.get(name, 0) + n
+
+    t0 = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ssm_") as tmp:
+        MM.init_ranks(str(pathlib.Path(tmp) / "store"), 0, 1, device)
+        try:
+            mesh = MM.make_host_mesh(1, 1, device=device)
+            for arch, layers, wn, seq in TP_SSM_TRAIN:
+                cfg = get_arch(arch)
+                if layers is not None:
+                    cfg = dataclasses.replace(cfg, n_layers=layers)
+                t1 = time.perf_counter()
+                tp, plain = tp_train_pair(torch, device, "[tp-ssm]", cfg, wn,
+                                          seq, mesh)
+                same_scans(arch, "training", tp["counts"], plain["counts"],
+                           (SCAN, SCAN_BWD))
+                del tp, plain
+                log(f"[tp-ssm] {arch} training: both paths in "
+                    f"{time.perf_counter() - t1:.1f} s")
+            for arch, prompt in TP_SSM_SERVE:
+                t1 = time.perf_counter()
+                same_scans(arch, "serving", *tp_serve_pair(
+                    torch, device, "[tp-ssm]", get_arch(arch), prompt, mesh),
+                    (SCAN,))
+                log(f"[tp-ssm] {arch} serving: both paths in "
+                    f"{time.perf_counter() - t1:.1f} s")
+        finally:
+            dist.destroy_process_group()
+    log(f"[tp-ssm] phase {time.perf_counter() - t0:.1f} s; B5/B5b launches "
+        f"on the tensor-parallel paths {total}")
+    return total
 
 
 def pytree_breakdown(torch, device, cfg, state, gcfg, acfg, step):
@@ -4212,6 +4342,7 @@ def main() -> int:
     for name, n in phase_tp(torch, device).items():
         counts[name] += n
     phase_tp_serve(torch, device)
+    tp_ssm = phase_tp_ssm(torch, device)
     counts.update(phase_fused_update(torch, device))
     kres.update(phase_kmeans_kernels(torch, device))
     counts.update(phase_parzen_blend(torch, device))
@@ -4223,6 +4354,8 @@ def main() -> int:
     counts.update(phase_serve(torch, device))
     phase_ssm_train_check(torch, device)
     counts.update(phase_ssm_train(torch, device))
+    for name, n in tp_ssm.items():
+        counts[name] += n
     phase_moe_train_check(torch, device)
     phase_moe_train(torch, device)
     phase_moe_blend(torch, device)

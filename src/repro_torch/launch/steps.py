@@ -262,8 +262,8 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
     (``tensor_parallel.serve_slice``); the logits come back vocab-sharded
     and every cache leaf placed by ``sharding.cache_pspec`` (KV heads, else
     the sequence, over ``model``; else replicated), redistributed once at
-    the end of the prefill.  Configs with 'R'/'S' layers or MoE raise
-    NotImplementedError (ROADMAP item 15e)."""
+    the end of the prefill.  Configs with MoE raise NotImplementedError
+    (ROADMAP item 15e)."""
     cfg = _serve_cfg(cfg)
     if mesh is not None:
         from .tensor_parallel import make_serve_steps

@@ -55,24 +55,32 @@ local shard (``models/common.py _decode_placed``; whisper's cross cache
 alike): its own KV heads, or its own positions combined over ``model``
 as flash-decoding combines them, or the whole replicated cache; no
 cache-sized tensor moves.  The logits come back vocab-sharded, their
-argmax taken over the shards (:func:`greedy_tokens`).  Configs with 'R'
-or 'S' layers or MoE raise (:func:`check_serve_scope`, ROADMAP item 15e).
+argmax taken over the shards (:func:`greedy_tokens`).  The 'S' and 'R'
+layers' states are placed alike: ``ssm`` over its heads, ``conv`` and
+``h`` over their channels, where they divide; each decode step reads and
+steps the rank's local shards (models/ssm.py, models/rglru.py), and the
+prefill's states keep their f32.  Configs with MoE raise
+(:func:`check_serve_scope`, ROADMAP item 15e).
 
 Scope (:func:`check_scope`): configs of attention layers ('G', 'L'
-windows, 'E' encoder layers) with dense MLPs (GLU or plain with biases),
-RMSNorm or LayerNorm, RoPE or sinusoidal positions, softcaps, scaled
-embeddings, a vision prefix of patches or an audio encoder with
-cross-attention (smollm-135m, qwen2.5-14b, qwen3-14b, gemma3-1b,
-paligemma-3b, whisper-tiny); algo 'asgd', inner 'sgd', 'leaves' mode, a
-round every step, the blend through B2r/B2a
-(``ASGDConfig(use_fused=True)``) and wire None or "dtype".  'R' and 'S'
-layers, MoE, and every other option raise NotImplementedError naming
-their ROADMAP item.  Where the heads do not divide over ``model`` (the
-d_model fallback of ``sharding.param_pspec``), DTensor contracts the
-sharded d_model and replicates the attention's operands: correct, not
-parallel.  Transport: NCCL for CUDA tensors, gloo for CPU tensors
-(``launch/mesh.py _check_transport``); nothing is staged through the
-host.
+windows, 'E' encoder layers), Mamba-2 SSD ('S') and RG-LRU ('R') layers
+with dense MLPs (GLU or plain with biases), RMSNorm or LayerNorm, RoPE or
+sinusoidal positions, softcaps, scaled embeddings, a vision prefix of
+patches or an audio encoder with cross-attention (smollm-135m,
+qwen2.5-14b, qwen3-14b, gemma3-1b, paligemma-3b, whisper-tiny,
+mamba2-370m, recurrentgemma-9b); algo 'asgd', inner 'sgd', 'leaves' mode,
+a round every step, the blend through B2r/B2a
+(``ASGDConfig(use_fused=True)``) and wire None or "dtype".  MoE and every
+other option raise NotImplementedError naming their ROADMAP item.  An
+'S' layer runs kernel B5 (B5b under autograd) on each rank's own heads,
+an 'R' layer its doubling scan on each rank's channels (models/ssm.py
+``_apply_ssd_placed``, models/rglru.py ``_apply_rglru_placed``).  Where
+the heads do not divide over ``model`` (the d_model fallback of
+``sharding.param_pspec``), DTensor contracts the sharded d_model and
+replicates the attention's operands, and an 'S' layer scans every head
+on every rank: correct, not parallel.  Transport: NCCL for CUDA
+tensors, gloo for CPU tensors (``launch/mesh.py _check_transport``);
+nothing is staged through the host.
 """
 from __future__ import annotations
 
@@ -101,10 +109,7 @@ def _not_ported(what: str, item: str,
 def _model_features(cfg):
     """(what, ROADMAP item, present) of each model feature the DTensor path
     does not carry."""
-    types = set(cfg.pattern_cycle)
-    return (("'R' (RG-LRU) layers", "15e", "R" in types),
-            ("'S' (SSD) layers", "15e", "S" in types),
-            ("MoE FFNs", "15e", cfg.n_experts > 0))
+    return (("MoE FFNs", "15e (MoE)", cfg.n_experts > 0),)
 
 
 def check_scope(cfg, *, algo, inner, gcfg, acfg, pack_spec=None,
@@ -141,8 +146,8 @@ def check_scope(cfg, *, algo, inner, gcfg, acfg, pack_spec=None,
 
 def check_serve_scope(cfg) -> None:
     """Raise NotImplementedError for a model the tensor-parallel serve does
-    not carry ('R'/'S' layers, MoE: ROADMAP item 15e), as
-    :func:`check_scope` does for training."""
+    not carry (MoE: ROADMAP item 15e), as :func:`check_scope` does for
+    training."""
     for what, item, present in _model_features(cfg):
         if present:
             raise _not_ported(f"{what} ({cfg.name!r})", item, "serve")
@@ -252,16 +257,24 @@ def place_cache(mesh, cache, cfg):
     return unflatten(flatten_sorted(cache)[1], out)
 
 
+# the attention caches' leaves, bf16 as the plain prefill leaves them
+_KV_LEAVES = ("k", "v", "cross_k", "cross_v")
+
+
 def _place_prefill_cache(mm, cache, cfg):
     """The prefill's cache (DTensor leaves as the projections left them:
     heads sharded, replicated, or a ``Partial`` f32 sum over a sharded
-    d_model) redistributed once to ``sharding.cache_pspec``'s placements
-    and cast to bf16.  The leaves hold the rank's batch already."""
+    d_model; the 'R'/'S' states over their heads or channels, or
+    replicated) redistributed once to ``sharding.cache_pspec``'s
+    placements, the KV leaves cast to bf16 (the states keep their dtype,
+    as the plain prefill's).  The leaves hold the rank's batch already."""
     sizes = {"model": mm.size()}
-    return SH.tree_map_with_path(
-        lambda path, x: x.redistribute(mm, SH.placements(mm, _model_only(
-            SH.cache_pspec(path, x, cfg, axis_sizes=sizes)))).to(
-                torch.bfloat16), cache)
+
+    def place(path, x):
+        x = x.redistribute(mm, SH.placements(mm, _model_only(
+            SH.cache_pspec(path, x, cfg, axis_sizes=sizes))))
+        return x.to(torch.bfloat16) if path[-1] in _KV_LEAVES else x
+    return SH.tree_map_with_path(place, cache)
 
 
 def greedy_tokens(logits):

@@ -239,18 +239,20 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
             # the batch-sharded recurrent block
             h = constrain(h, WORKERS, "model", None, None)
         out, h_fin = apply_rglru(p["rglru"], h)
+        out = _segment_out(cfg, out)
         if return_cache:
             K = p["rglru"]["conv_w"].shape[1]
-            cache = {"conv": torch.zeros(
-                x.shape[:2] + (K - 1, h_fin.shape[-1]), dtype=x.dtype,
-                device=x.device), "h": h_fin}
+            cache = {"conv": _zeros_beside(
+                h_fin, x.shape[:2] + (K - 1, h_fin.shape[-1]), x.dtype),
+                "h": h_fin}
     else:
         out, h_fin = apply_ssd(p["ssm"], h, chunk=cfg.ssm_chunk,
                                **_ssm_dims(cfg))
+        out = _segment_out(cfg, out)
         if return_cache:
             K, C = p["ssm"]["conv_w"].shape[1:]
-            cache = {"conv": torch.zeros(x.shape[:2] + (K - 1, C),
-                                         device=x.device),
+            cache = {"conv": _zeros_beside(h_fin, x.shape[:2] + (K - 1, C),
+                                           torch.float32),
                      "ssm": h_fin}
     x = x + out
     if "cross" in p and enc_out is not None:
@@ -264,6 +266,19 @@ def apply_layer(cfg: ModelConfig, ltype: str, p, x, positions, *,
         x = constrain(x, WORKERS, None, "model", None)
     x, aux = _ffn(cfg, p, x, norm)
     return x, aux, cache
+
+
+def _zeros_beside(state, shape, dtype):
+    """The zero conv cache an 'R' or 'S' prefill returns beside its final
+    ``state``: replicated zeros on the state's mesh where the state is
+    placed (the tensor-parallel prefill, which redistributes every cache
+    leaf to ``cache_pspec``'s placement at its end)."""
+    if not placed(state):
+        return torch.zeros(shape, dtype=dtype, device=state.device)
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(
+        torch.zeros(shape, dtype=dtype, device=state.device),
+        state.device_mesh, (Replicate(),) * state.device_mesh.ndim)
 
 
 def prompt_cache(t, length: int):

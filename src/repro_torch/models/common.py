@@ -69,9 +69,14 @@ def init_rmsnorm(d, dtype=torch.float32, device=None):
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
 
 
-def rmsnorm(params, x, eps=1e-6):
+def rmsnorm(params, x, eps=1e-6, combine=None):
+    """``combine``: where x is a rank's even share of the normalised dim,
+    the ranks' means of squares -> the whole dim's (models/ssm.py's gated
+    norm under tensor parallelism)."""
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
+    if combine is not None:
+        var = combine(var)
     y = x32 * torch.rsqrt(var + eps)
     # gemma-style (1 + scale): zero-init scale == identity
     scale = per_worker(params["scale"].float(), x.ndim)
@@ -358,9 +363,7 @@ def attend_heads(fn, p_attn, spec: AttnSpec, x, *args, **kw):
         return t.to_local()
 
     def whole(t):
-        if not isinstance(t, DTensor):
-            return t
-        return local(t.redistribute(mesh, (Replicate(),)))
+        return whole_local(t, True)
     m = mesh.size()
     kv_split = _kv_split(p_attn)
 
@@ -461,6 +464,68 @@ def _whole(t):
     """A DTensor's whole value on every rank (all-gathered, or summed where
     it is a ``Partial``) as a plain tensor; a plain tensor itself."""
     return t.full_tensor() if placed(t) else t
+
+
+# ---------------------------------------------------------------------------
+# local computations on placed leaves (the SSD and RG-LRU mixers under
+# tensor parallelism: models/ssm.py, models/rglru.py)
+# ---------------------------------------------------------------------------
+
+def whole_local(t, shared: bool):
+    """A DTensor's whole value on every rank of its mesh as a plain tensor
+    (all-gathered, or summed where it is a ``Partial``), for a computation
+    on local tensors; a plain tensor itself.  Its gradient comes back as
+    the computation made it: ``shared`` — each rank computes its own share
+    of the function from the whole value (its heads, its channels), so the
+    ranks' gradients are summed over the mesh (a ``Partial``); else every
+    rank computes the same, and its gradient is the same on every rank
+    (``Replicate``)."""
+    if not placed(t):
+        return t
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = t.device_mesh
+    whole = (t if all(isinstance(p, Replicate) for p in t.placements)
+             else t.redistribute(mesh, (Replicate(),) * mesh.ndim))
+    return whole.to_local(
+        grad_placements=(Partial(),) * mesh.ndim if shared else None)
+
+
+def mean_over(local, mesh):
+    """The mean over the ranks of the 1-D ``mesh`` of each rank's
+    ``local`` (an all-reduce), on every rank, its gradient handed back to
+    each rank's term."""
+    from torch.distributed.tensor import DTensor, Partial
+    return whole_local(DTensor.from_local(local / mesh.size(), mesh,
+                                          (Partial(),)), True)
+
+
+def gather_shards(local, mesh, dim: int, shared: bool = True):
+    """The whole of a tensor whose even shards along ``dim`` the ranks of
+    the 1-D ``mesh`` hold (``local`` this rank's), as a plain tensor on
+    every rank: an all-gather, its gradient reduce-scattered back where
+    each rank's use of the whole is its own share (``shared``, as
+    :func:`whole_local`'s), else sliced."""
+    from torch.distributed.tensor import DTensor, Shard
+    shards = DTensor.from_local(local, mesh, (Shard(dim % local.ndim),))
+    return whole_local(shards, shared)
+
+
+def share_of(mesh, n: int) -> tuple[int, int, bool]:
+    """(first, count, split) of this rank's share of ``n`` heads or
+    channels on the 1-D ``mesh``: its 1/size of them where ``n`` divides
+    over the mesh (``split``), else all ``n``."""
+    m = mesh.size()
+    if n % m:
+        return 0, n, False
+    return mesh.get_local_rank() * (n // m), n // m, True
+
+
+def like_placed(like, local):
+    """``local`` as a DTensor of ``like``'s mesh and placements (even
+    shards): a cache leaf's new value, for ``copy_`` into the leaf."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False)
 
 
 def cache_split(c) -> str:

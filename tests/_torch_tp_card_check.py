@@ -21,6 +21,15 @@ an f32 copy of the single-device cache) within 1e-5 of the largest,
 generate(mesh=)'s tokens equal, every cache leaf placed by cache_pspec,
 a decode step's collectives the same at two cache lengths.
 
+'S' and 'R' layers: the cases of tests/test_torch_tensor_parallel_ssm.py
+(tests/_torch_tp_ssm_ranks.py), on numpy weights (worker 0 of each
+training draw as the base of its workers' starts), against the
+single-device port at that test's gates: training's losses, gates and
+params as above and each gradient part within 1e-4 of its largest
+magnitude; serving's logits within 1e-5 of the largest, tokens equal,
+cache placements, and a decode step's collectives alike at two lengths
+and none reading the cache.
+
 Prints a line a case; exits 1 if a rank fails or a case misses.
 """
 import pathlib
@@ -31,13 +40,14 @@ import torch
 
 import _torch_tp_ranks as R
 import _torch_tp_serve_ranks as S
+import _torch_tp_ssm_ranks as T
 from repro_torch.configs.registry import get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import asgd as tasgd
 from repro_torch.core import gossip as tg
 from repro_torch.core.tree import tree_map
 from repro_torch.launch import sharding as SH
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import make_train_step, tree_loss_and_grad
 from repro_torch.models import model as TM
 
 TIMEOUT_S = 900
@@ -188,10 +198,146 @@ def serve_check(out):
     return ok
 
 
+def ssm_inputs():
+    """tests/_torch_tp_ssm_ranks.py's inputs from numpy (worker 0 of each
+    case's training draw as the base, T.worker_starts beside it) and each
+    training case's (cfg, tokens, draws)."""
+    inputs, train = {}, {}
+    for seed, (name, (arch, cuts, rows)) in enumerate(T.TRAIN.items()):
+        cfg = T.config(arch, cuts, get_arch)
+        base = {k: v[0] for k, v in R.weights(cfg, seed).items()}
+        inputs.update({f"train.{name}.w.{k}": v for k, v in
+                       T.worker_starts(base, seed).items()})
+        rng = np.random.default_rng(seed + 100)
+        toks = []
+        for t, d in enumerate(draws(cfg, tg.GossipConfig(**T.gossip_kw()))):
+            toks.append(rng.integers(0, cfg.vocab, (R.W, rows, T.SEQ))
+                        .astype(np.int32))
+            inputs[f"train.{name}.tok.{t}"] = toks[-1]
+            inputs[f"train.{name}.draw.{t}"] = np.asarray(d)
+        train[name] = cfg
+    for seed, (name, (arch, cuts, rows, prompt)) in enumerate(
+            T.SERVE.items()):
+        cfg = T.config(arch, cuts, get_arch)
+        inputs.update({f"{name}.w.{k}": v[0] for k, v in
+                       R.weights(cfg, seed + 10).items()})
+        inputs[f"{name}.tokens"] = np.random.default_rng(seed + 300) \
+            .integers(0, cfg.vocab, (rows, prompt)).astype(np.int32)
+    return inputs, train
+
+
+def ssm_check(out):
+    """The 'S'/'R' ranks against the single-device port: training's
+    losses, gates and params at the train cases' gates, each gradient
+    part within 1e-4 of its largest magnitude; serving's logits within
+    1e-5 of the largest, tokens equal, placements, collectives alike at
+    two lengths and none reading the cache.  True if every case meets
+    them."""
+    out.mkdir(parents=True, exist_ok=True)
+    inputs, train = ssm_inputs()
+    procs, logs = R.start_ranks(out, inputs, script=T.__file__)
+    torch.set_num_threads(1)
+    try:
+        want = {}
+        for name, cfg in train.items():
+            head = f"train.{name}."
+            params = params_from_numpy(R.nest({
+                k[len(head) + 2:]: v for k, v in inputs.items()
+                if k.startswith(head + "w.")}))
+            toks = [torch.from_numpy(inputs[f"{head}tok.{t}"])
+                    for t in range(T.STEPS)]
+            _, grads = tree_loss_and_grad(cfg, params, {"tokens": toks[0]})
+            gcfg = tg.GossipConfig(**T.gossip_kw())
+            step = make_train_step(cfg, gcfg=gcfg, acfg=tasgd.ASGDConfig(
+                eps=R.EPS, use_fused=True))
+            state, metrics = tg.init_gossip_state(params, gcfg), []
+            for t in range(T.STEPS):
+                si, bi = (int(v) for v in inputs[f"{head}draw.{t}"])
+                params, state, _, m = step(params, state, 0,
+                                           {"tokens": toks[t]}, si, bi)
+                metrics.append({n: m[n].numpy() for n in ("loss", "gate")})
+            want[name] = (metrics, {R.path_key(p): x.numpy()
+                                    for p, x in SH.tree_paths(params)},
+                          {R.path_key(p): x.numpy()
+                           for p, x in SH.tree_paths(grads)})
+        for name, (arch, cuts, _, prompt) in T.SERVE.items():
+            cfg = T.config(arch, cuts, get_arch)
+            params = params_from_numpy(R.nest({
+                k[len(name) + 3:]: v for k, v in inputs.items()
+                if k.startswith(f"{name}.w.")}))
+            logits, toks, _ = S.serve_plain(cfg, params, {
+                "tokens": torch.from_numpy(inputs[f"{name}.tokens"])},
+                prompt)
+            want[f"serve.{name}"] = (logits[0].numpy(), toks.numpy())
+        codes = [p.wait(timeout=TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for f in logs:
+            f.close()
+    print(f"torch {torch.__version__}: 'S'/'R' ranks exited {codes}",
+          flush=True)
+    if any(codes):
+        print((out / f"rank{codes.index(next(filter(None, codes)))}.log")
+              .read_text()[-3000:])
+        return False
+    got = [dict(np.load(out / f"rank{r}.npz")) for r in range(R.WORLD)]
+    ok = True
+    for name, cfg in train.items():
+        steps, params, grads = want[name]
+        head = f"train.{name}."
+        rel = max(abs(float(got[0][f"{head}{t}.loss"]) - float(m["loss"]))
+                  / abs(float(m["loss"])) for t, m in enumerate(steps))
+        gates = all(np.array_equal(rk[f"{head}{t}.gate"], m["gate"])
+                    for rk in got for t, m in enumerate(steps))
+        close = all(np.allclose(got[0][f"{head}final.{k}"], v, rtol=1e-5,
+                                atol=1e-5) for k, v in params.items())
+        gerr = max(
+            float(np.abs(T.grad_parts(cfg, k, got[0][f"{head}grads.{k}"])[p]
+                         - w).max() / np.abs(w).max())
+            for k, v in grads.items()
+            for p, w in T.grad_parts(cfg, k, v).items())
+        good = rel <= 1e-5 and gates and close and gerr <= 1e-4
+        ok &= good
+        print(f"train {name}: loss rel {rel:.3e}, gates equal {gates}, "
+              f"params within 1e-5 {close}, largest gradient part error "
+              f"{gerr:.3e} of its largest: {'ok' if good else 'MISSED'}",
+              flush=True)
+    for name, (arch, cuts, rows, prompt) in T.SERVE.items():
+        cfg = T.config(arch, cuts, get_arch)
+        prefill, toks = want[f"serve.{name}"]
+
+        def rel(a, b):
+            return float(np.abs(a - b).max()
+                         / np.abs(b[..., :cfg.vocab]).max())
+        errs = [rel(rk[f"{name}.0.logits"], prefill[rk[f"{name}.rows"]])
+                for rk in got]
+        errs += [rel(rk[f"{name}.forced.{t}"],
+                     rk[f"{name}.forced_plain.{t}"][rk[f"{name}.rows"]])
+                 for rk in got for t in range(1, S.NEW)]
+        same_toks = all(np.array_equal(rk[f"{name}.generate"], toks)
+                        for rk in got)
+        placed = all(serve_placements_ok(rk, name, cfg, rows,
+                                         S.cache_len(cfg, prompt))
+                     for rk in got)
+        comms = all(list(rk[f"{name}.comms"])
+                    == list(rk[f"{name}.comms_long"])
+                    and int(rk[f"{name}.comms_cache"]) == 0 for rk in got)
+        good = max(errs) <= 1e-5 and same_toks and placed and comms
+        ok &= good
+        print(f"serve {name}: max logit err {max(errs):.3e} of the largest, "
+              f"tokens equal {same_toks}, placements {placed}, collectives "
+              f"alike at two lengths and none on the cache {comms}: "
+              f"{'ok' if good else 'MISSED'}", flush=True)
+    return ok
+
+
 def main(out_dir):
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     serve_ok = serve_check(out / "serve")
+    serve_ok &= ssm_check(out / "ssm")
     inputs, batches = {}, {}
     for seed, arch in enumerate(R.ARCHS):
         ins, batches[arch] = case_inputs(arch, seed)

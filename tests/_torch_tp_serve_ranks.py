@@ -82,9 +82,13 @@ class Collectives(TorchDispatchMode):
     let through first (NotImplemented), so the collectives they desugar
     into are seen, as CommDebugMode sees them."""
 
-    def __init__(self):
+    def __init__(self, cache=None):
         super().__init__()
         self.ops = []
+        # the storages of ``cache``'s local shards, and the collective
+        # inputs found reading one
+        self.watched = storages(cache) if cache is not None else set()
+        self.cache_reads = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -93,11 +97,20 @@ class Collectives(TorchDispatchMode):
         name = func._schema.name
         if (name.split("::")[0] in ("_c10d_functional", "c10d")
                 and "wait" not in name):
-            n = sum(t.numel() * t.element_size()
-                    for t in tree_leaves((args, kwargs or {}))
-                    if isinstance(t, torch.Tensor))
+            ins = [t for t in tree_leaves((args, kwargs or {}))
+                   if isinstance(t, torch.Tensor)]
+            n = sum(t.numel() * t.element_size() for t in ins)
             self.ops.append(f"{name}:{n}")
+            self.cache_reads += sum(
+                t.untyped_storage().data_ptr() in self.watched for t in ins)
         return func(*args, **(kwargs or {}))
+
+
+def storages(cache) -> set:
+    """The data pointers of the storages of a placed cache's local
+    shards."""
+    return {x.to_local().untyped_storage().data_ptr()
+            for _, x in SH.tree_paths(cache)}
 
 
 class Calls:
@@ -134,7 +147,9 @@ def record_cache(out, key, cache):
         local = x.to_local()
         out[f"{k}.placement"] = np.array(R.placement_name(x.placements))
         out[f"{k}.bytes"] = np.int64(local.numel() * local.element_size())
-        out[f"{k}.value"] = x.full_tensor().float().numpy()
+        # a copy: an f32 leaf replicated over `model` would be the live
+        # cache itself, which the decode steps write in place
+        out[f"{k}.value"] = x.full_tensor().float().numpy().copy()
 
 
 class Recorded:
@@ -160,11 +175,14 @@ class Recorded:
         step = self.makers[1](cfg, mesh)
 
         def run(*args):
-            comms = Collectives() if self.t == 1 else contextlib.nullcontext()
+            comms = (Collectives(args[3]) if self.t == 1
+                     else contextlib.nullcontext())
             with comms:
                 logits, cache = step(*args)
             if self.t == 1:
                 self.out[f"{self.name}.comms"] = np.array(comms.ops)
+                self.out[f"{self.name}.comms_cache"] = np.int64(
+                    comms.cache_reads)
             self.record(logits, cache)
             return logits, cache
         return run
@@ -186,7 +204,12 @@ class Recorded:
 
 def run_case(mesh, inp, out, name):
     arch, rows, prompt = CASES[name]
-    cfg = R.config(arch, get_arch)
+    serve_case(mesh, inp, out, name, R.config(arch, get_arch), rows, prompt)
+
+
+def serve_case(mesh, inp, out, name, cfg, rows, prompt):
+    """One case: ``cfg`` served at batch ``rows`` after a prompt of
+    ``prompt`` tokens, its inputs under ``name`` in ``inp``."""
     head = f"{name}.w."
     plain = params_from_numpy(R.nest(
         {k[len(head):]: inp[k] for k in inp if k.startswith(head)}))
@@ -218,9 +241,10 @@ def run_case(mesh, inp, out, name):
         for path, x in SH.tree_paths(big):
             out[f"{name}.long.{R.path_key(path)}.placement"] = np.array(
                 R.placement_name(x.placements))
-        with Collectives() as comms:
+        with Collectives(big) as comms:
             decode(params, TP.serve_slice(mesh, plain_toks[:, 0]), start, big)
         out[f"{name}.comms_long"] = np.array(comms.ops)
+        out[f"{name}.comms_long_cache"] = np.int64(comms.cache_reads)
 
 
 def probe_greedy(mesh, out):

@@ -23,6 +23,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.tree import tree_map
 from repro_torch.models import blocks as TB
 from repro_torch.models import common as TC
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SPEC = dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16)
 

@@ -45,6 +45,7 @@ from repro_torch.models import blocks as TB
 from repro_torch.models import common as TC
 from repro_torch.models import mlp as TMLP
 from repro_torch.models import model as TM
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "whisper-tiny"
 TOL = dict(rtol=1e-5, atol=1e-5)

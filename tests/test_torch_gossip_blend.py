@@ -30,6 +30,7 @@ from repro_torch.kernels.gossip_blend.kernel import (gossip_apply_w_resident,
 from repro_torch.kernels.gossip_blend.ops import choose_block_rows
 from repro_torch.kernels.gossip_blend.ref import \
     gossip_blend_w_resident_ref as tblend_ref
+from _torch_threads import one_torch_thread  # noqa: F401
 
 W, R, LANE, BR = 4, 2624, 512, 64
 EPS, LR, ALPHA = 0.05, 0.07, 0.3

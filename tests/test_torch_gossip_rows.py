@@ -11,6 +11,7 @@ import pytest
 from _torch_gossip_cases import W, run_parity, to_t, tree
 from repro.core import gossip as jg
 from repro_torch.core import gossip as tg
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("fused", [False, True])

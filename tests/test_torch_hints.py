@@ -27,6 +27,7 @@ from repro_torch.launch.mesh import (_auto_mesh, fake_process_group,
                                      mesh_context)
 from repro_torch.models import blocks, hints
 from repro_torch.models import model as M
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -98,6 +98,7 @@ def test_dryrun_slice_modules_are_checked(module):
 
 @pytest.mark.parametrize("name", ["_torch_tp_ranks.py",
                                   "_torch_tp_serve_ranks.py",
+                                  "_torch_tp_ssm_ranks.py",
                                   "_torch_tp_card_check.py"])
 def test_rank_programs_import_neither_jax_nor_reference(name):
     """The tensor-parallel rank programs and their card check run on a

@@ -21,6 +21,7 @@ from repro.kernels.kmeans_assign.ref import (
 from repro_torch.kernels.kmeans_assign import kmeans_assign, kmeans_assign_w
 from repro_torch.kernels.kmeans_assign.ref import (
     kmeans_assign_ref, minibatch_delta_from_stats)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SUMS_TOL = {"rtol": 1e-5, "atol": 1e-5}
 SHAPES = [(256, 8, 4), (512, 10, 10), (1000, 17, 7), (256, 128, 100),

@@ -25,6 +25,7 @@ from repro_torch.core.packing import pack_spec_w, pack_w
 from repro_torch.core.tree import flatten_sorted, tree_map
 from repro_torch.launch.steps import packed_loss_and_grad
 from repro_torch.models import model as TM
+from _torch_threads import one_torch_thread  # noqa: F401
 
 W = 2
 

@@ -19,6 +19,7 @@ import torch
 
 from repro.models import moe as JM
 from repro_torch.models import moe as TM
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

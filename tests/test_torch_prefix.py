@@ -37,6 +37,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import blocks as TB
 from repro_torch.models import common as TC
 from repro_torch.models import model as TM
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "paligemma-3b"
 SPEC = dict(d_model=64, n_heads=4, n_kv_heads=1, head_dim=16)

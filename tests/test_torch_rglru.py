@@ -25,6 +25,7 @@ from repro_torch.checkpoint import canonical_leaves
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.tree import flatten_sorted
 from repro_torch.models import rglru as TR
+from _torch_threads import one_torch_thread  # noqa: F401
 
 D, C, W, B = 24, 32, 2, 2
 TOL = dict(rtol=1e-5, atol=1e-5)

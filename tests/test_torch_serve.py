@@ -35,6 +35,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.models import model as TM
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["mamba2-370m", "smollm-135m", "granite-moe-1b-a400m",
          "phi3.5-moe-42b-a6.6b", "gemma3-1b", "recurrentgemma-9b",

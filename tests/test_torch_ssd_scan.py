@@ -29,6 +29,7 @@ from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_prep,
                                               ssd_scan_plain, ssd_scan_ref,
                                               ssd_state_passing)
 from repro_torch.models.ssm import ssd_chunked, ssd_reference
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [  # (B, S, H, P, N, chunk) of tests/test_kernels.py
     (2, 128, 4, 8, 16, 32), (1, 100, 2, 16, 8, 32),

@@ -31,6 +31,7 @@ from repro_torch.kernels.ssd_scan.ref import (HEAD_GROUP, _decay, ddecay,
                                               ssd_scan_plain_saved,
                                               ssd_scan_ref,
                                               ssd_state_walk_bwd)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 NAMES = ("dx", "ddt", "dA", "dB", "dC")

@@ -19,6 +19,7 @@ from repro.models import ssm as JS
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.tree import tree_map
 from repro_torch.models import ssm as TS
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CFG = get_arch("mamba2-370m").reduced()
 DIMS = {"head_dim": CFG.ssm_head_dim, "state": CFG.ssm_state,

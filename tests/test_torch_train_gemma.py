@@ -44,6 +44,7 @@ from repro_torch.launch.steps import (init_inner_state, make_train_step,
                                       tree_loss_and_grad)
 from repro_torch.models import model as TM
 from test_torch_train_moe import BATCH, GOSSIP, SEQ, run_both, worker_params
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["gemma3-1b", "recurrentgemma-9b"]
 

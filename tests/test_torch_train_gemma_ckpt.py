@@ -13,6 +13,7 @@ import pytest
 
 from repro_torch.checkpoint import canonical_leaves
 from repro_torch.launch import train as ttrain
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TRAIN = ["--arch", "recurrentgemma-9b", "--reduced", "--batch", "1",
          "--seq", "32", "--workers", "2", "--pipelined", "--wire-format",

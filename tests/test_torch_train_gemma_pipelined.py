@@ -26,6 +26,7 @@ from repro_torch.core import gossip as tg
 from repro_torch.core.packing import pack_spec_w, pack_w
 from repro_torch.launch.steps import init_inner_state, make_train_step
 from test_torch_train_moe import GOSSIP, run_both, worker_params
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BLOCK_ROWS = 256
 

@@ -39,6 +39,7 @@ from repro_torch.core import gossip as tg
 from repro_torch.core.packing import pack_spec_w, pack_w
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import init_inner_state, make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCH, W, BATCH, SEQ, STEPS = "mamba2-370m", 4, 2, 32, 3
 START_NOISE = 0.1
