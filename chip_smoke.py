@@ -69,7 +69,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      steps each against the plain pytree step, and full mamba2-370m and
      recurrentgemma-9b served (prompt 2048, batch 4, 16 tokens) against
      the plain generate; B5/B5b as often on each tensor-parallel path as
-     on the plain one;
+     on the plain one; [tp-moe] the MoE archs expert-parallel: full
+     granite-moe-1b-a400m (W=1, seq 128) 3 steps against the plain
+     pytree step, full granite-moe and phi3.5-moe at 4 layers served
+     (prompt 2048, batch 4, 16 tokens) against the plain generate; the
+     placed MoE's call counter above 0, peaks within 5% of plain;
   7. [fused-update] asgd_update(use_fused=True) on one full smollm-135m
      replica at P=1 and P=4 against use_fused=False, counters zeroed
      before and read after — B3r/B3a launched;
@@ -1804,7 +1808,7 @@ def tp_serve_pair(torch, device, tag, cfg, prompt, mesh):
     held together: tokens equal, and the logits of the prefill and of
     every decode step bitwise, or else within TP_SERVE_TOL of the largest;
     logged under ``tag``.  Returns the tensor-parallel path's launch
-    counts and the plain path's."""
+    counts and the plain path's, then both runs (:func:`tp_serve_run`)."""
     import torch.distributed as dist
 
     from repro_torch import kernels as K
@@ -1840,7 +1844,7 @@ def tp_serve_pair(torch, device, tag, cfg, prompt, mesh):
         f"{plain['decode_ms_per_token']:.3f} ms a token; peak "
         f"{tp['peak_gib']:.2f} GiB vs {plain['peak_gib']:.2f} GiB; launches "
         f"(two generate runs each) {tp_counts} vs {plain_counts}")
-    return tp_counts, plain_counts
+    return tp_counts, plain_counts, tp, plain
 
 
 # [tp-ssm]'s runs.  Training: (arch, layers (None: all), W, seq), batch 2:
@@ -1905,14 +1909,97 @@ def phase_tp_ssm(torch, device):
             for arch, prompt in TP_SSM_SERVE:
                 t1 = time.perf_counter()
                 same_scans(arch, "serving", *tp_serve_pair(
-                    torch, device, "[tp-ssm]", get_arch(arch), prompt, mesh),
-                    (SCAN,))
+                    torch, device, "[tp-ssm]", get_arch(arch), prompt,
+                    mesh)[:2], (SCAN,))
                 log(f"[tp-ssm] {arch} serving: both paths in "
                     f"{time.perf_counter() - t1:.1f} s")
         finally:
             dist.destroy_process_group()
     log(f"[tp-ssm] phase {time.perf_counter() - t0:.1f} s; B5/B5b launches "
         f"on the tensor-parallel paths {total}")
+    return total
+
+
+# [tp-moe]'s runs.  Training: full granite-moe-1b-a400m (24 layers, 32
+# experts top-8) at W 1, seq 128, batch 2: a replica is 5.3 GB and the
+# pytree engine holds ~9 copies, so W 2 would not fit beside the plain
+# pair; phi3.5-moe (168 GB a replica in f32) does not train on one card.
+# Serving: granite whole and phi3.5-moe at PHI_LAYERS of its 32 layers,
+# as [moe-serve] serves them, batch TP_SERVE_BATCH, TP_SERVE_NEW tokens
+TP_MOE_TRAIN = (("granite-moe-1b-a400m", None, 1, 128),)
+TP_MOE_SERVE = (("granite-moe-1b-a400m", None, 2048),
+                ("phi3.5-moe-42b-a6.6b", 4, 2048))
+TP_PEAK_RATIO = 1.05                 # [tp-moe]: peaks within 5% of plain
+
+
+def phase_tp_moe(torch, device):
+    """[tp-moe]: expert parallelism for the MoE archs (models/moe.py
+    ``_apply_placed``) at one rank of an NCCL group, a (1, 1) ("data",
+    "model") mesh, every expert local: each of TP_MOE_TRAIN's pytree
+    steps against the plain pytree step (:func:`tp_train_pair`: bitwise
+    or within 1e-5, gates equal, B2r/B2a once a round), and each of
+    TP_MOE_SERVE's generate against the plain one (:func:`tp_serve_pair`:
+    tokens equal, logits bitwise or within TP_SERVE_TOL).  The placed
+    MoE's call counter, zeroed before each pair and read after (the
+    plain path never calls it), is above 0; each peak within
+    TP_PEAK_RATIO of the plain path's.  Returns the tensor-parallel
+    paths' B2r/B2a launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.gossip_blend.kernel import APPLY_W, REDUCE_W
+    from repro_torch.launch import mesh as MM
+    from repro_torch.models import moe
+
+    def checked(arch, what, tp, plain):
+        calls = moe.placed_calls()
+        if calls == 0 or tp["peak_gib"] > TP_PEAK_RATIO * plain["peak_gib"]:
+            raise AssertionError(
+                f"[tp-moe] {arch} {what}: {calls} placed MoE calls, peak "
+                f"{tp['peak_gib']:.2f} GiB against the plain path's "
+                f"{plain['peak_gib']:.2f} GiB")
+        log(f"[tp-moe] {arch} {what}: {calls} placed MoE calls on the "
+            f"tensor-parallel path; peak ratio "
+            f"{tp['peak_gib'] / plain['peak_gib']:.4f}")
+
+    def config(arch, layers):
+        cfg = get_arch(arch)
+        return cfg if layers is None else dataclasses.replace(
+            cfg, n_layers=layers)
+
+    t0 = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_moe_") as tmp:
+        MM.init_ranks(str(pathlib.Path(tmp) / "store"), 0, 1, device)
+        try:
+            mesh = MM.make_host_mesh(1, 1, device=device)
+            for arch, layers, wn, seq in TP_MOE_TRAIN:
+                t1 = time.perf_counter()
+                moe.reset_placed_calls()
+                tp, plain = tp_train_pair(torch, device, "[tp-moe]",
+                                          config(arch, layers), wn, seq, mesh)
+                checked(arch, "training", tp, plain)
+                for name in (REDUCE_W, APPLY_W):
+                    total[name] = total.get(name, 0) + tp["counts"][name]
+                del tp, plain
+                log(f"[tp-moe] {arch} training: both paths in "
+                    f"{time.perf_counter() - t1:.1f} s")
+            for arch, layers, prompt in TP_MOE_SERVE:
+                t1 = time.perf_counter()
+                moe.reset_placed_calls()
+                _, _, tp, plain = tp_serve_pair(
+                    torch, device, "[tp-moe]", config(arch, layers), prompt,
+                    mesh)
+                checked(arch, "serving", tp, plain)
+                del tp, plain
+                log(f"[tp-moe] {arch} serving: both paths in "
+                    f"{time.perf_counter() - t1:.1f} s")
+        finally:
+            dist.destroy_process_group()
+    log(f"[tp-moe] phase {time.perf_counter() - t0:.1f} s; B2r/B2a launches "
+        f"on the tensor-parallel training paths {total}")
     return total
 
 
@@ -4343,6 +4430,7 @@ def main() -> int:
         counts[name] += n
     phase_tp_serve(torch, device)
     tp_ssm = phase_tp_ssm(torch, device)
+    tp_moe = phase_tp_moe(torch, device)
     counts.update(phase_fused_update(torch, device))
     kres.update(phase_kmeans_kernels(torch, device))
     counts.update(phase_parzen_blend(torch, device))
@@ -4354,7 +4442,7 @@ def main() -> int:
     counts.update(phase_serve(torch, device))
     phase_ssm_train_check(torch, device)
     counts.update(phase_ssm_train(torch, device))
-    for name, n in tp_ssm.items():
+    for name, n in {**tp_ssm, **tp_moe}.items():
         counts[name] += n
     phase_moe_train_check(torch, device)
     phase_moe_train(torch, device)

@@ -10,8 +10,8 @@ CPU through the kernels' plain versions.  The port serves every arch of
 the reference: whisper-tiny's prompt follows the encoder's output on
 ``encoder_seq`` stub frames, paligemma-3b's follows ``prefix_len`` stub
 patch embeddings, both drawn at 0.1 x N(0, 1) from the seed, as the
-reference's server draws them.  ``generate(..., mesh=)`` serves the
-attention archs tensor-parallel over a ``("data", "model")`` mesh
+reference's server draws them.  ``generate(..., mesh=)`` serves every
+arch tensor-parallel over a ``("data", "model")`` mesh
 (launch/tensor_parallel.py); the CLI, as the reference's, has no flag for
 it.
 """
@@ -66,21 +66,24 @@ def generate(cfg, params, batch, prompt_len, new_tokens, mesh=None):
     prefill = make_prefill_step(cfg, mesh)
     decode = make_decode_step(cfg, mesh)
     rows = batch["tokens"].shape[0]
+    kw = {}
     if mesh is not None:
         batch = {k: serve_slice(mesh, v) for k, v in batch.items()}
+        kw["rows"] = rows
     device = batch["tokens"].device
     prefix = M.vision_prefix(cfg)
     _sync(device)
     t0 = time.perf_counter()
     last, cache = prefill(params, batch,
-                          cache_len=prompt_len + prefix + new_tokens)
+                          cache_len=prompt_len + prefix + new_tokens, **kw)
     tok = greedy_tokens(last)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     out = [tok]
     t0 = time.perf_counter()
     for i in range(new_tokens - 1):
-        logits, cache = decode(params, tok, prompt_len + prefix + i, cache)
+        logits, cache = decode(params, tok, prompt_len + prefix + i, cache,
+                               **kw)
         tok = greedy_tokens(logits)
         out.append(tok)
     _sync(device)

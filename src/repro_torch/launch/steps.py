@@ -262,8 +262,9 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
     (``tensor_parallel.serve_slice``); the logits come back vocab-sharded
     and every cache leaf placed by ``sharding.cache_pspec`` (KV heads, else
     the sequence, over ``model``; else replicated), redistributed once at
-    the end of the prefill.  Configs with MoE raise NotImplementedError
-    (ROADMAP item 15e)."""
+    the end of the prefill; the step then takes ``rows=``, the whole
+    batch's rows (``tensor_parallel.make_serve_steps``; an MoE config's
+    dispatch groups are the global batch's)."""
     cfg = _serve_cfg(cfg)
     if mesh is not None:
         from .tensor_parallel import make_serve_steps
@@ -279,8 +280,9 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     one greedy-decode position (models.model.decode_step; the cache is
     updated in place).  mesh: as :func:`make_prefill_step`'s — the cache a
     placed one (the prefill's, or ``tensor_parallel.place_cache``'s), the
-    token the rank's share of the batch, the logits vocab-sharded
-    (``tensor_parallel.greedy_tokens`` takes their argmax)."""
+    token the rank's share of the batch (``rows=`` the whole batch's
+    rows), the logits vocab-sharded (``tensor_parallel.greedy_tokens``
+    takes their argmax)."""
     cfg = _serve_cfg(cfg)
     if mesh is not None:
         from .tensor_parallel import make_serve_steps

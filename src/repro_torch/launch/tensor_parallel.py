@@ -59,31 +59,41 @@ argmax taken over the shards (:func:`greedy_tokens`).  The 'S' and 'R'
 layers' states are placed alike: ``ssm`` over its heads, ``conv`` and
 ``h`` over their channels, where they divide; each decode step reads and
 steps the rank's local shards (models/ssm.py, models/rglru.py), and the
-prefill's states keep their f32.  Configs with MoE raise
-(:func:`check_serve_scope`, ROADMAP item 15e).
+prefill's states keep their f32.  An MoE FFN runs expert-parallel as in
+training; its dispatch groups and capacity are the GLOBAL batch's
+(``rows=``, the whole batch's rows: ``models/moe.py batch_slice``).
 
-Scope (:func:`check_scope`): configs of attention layers ('G', 'L'
-windows, 'E' encoder layers), Mamba-2 SSD ('S') and RG-LRU ('R') layers
-with dense MLPs (GLU or plain with biases), RMSNorm or LayerNorm, RoPE or
-sinusoidal positions, softcaps, scaled embeddings, a vision prefix of
-patches or an audio encoder with cross-attention (smollm-135m,
-qwen2.5-14b, qwen3-14b, gemma3-1b, paligemma-3b, whisper-tiny,
-mamba2-370m, recurrentgemma-9b); algo 'asgd', inner 'sgd', 'leaves' mode,
-a round every step, the blend through B2r/B2a
-(``ASGDConfig(use_fused=True)``) and wire None or "dtype".  MoE and every
-other option raise NotImplementedError naming their ROADMAP item.  An
-'S' layer runs kernel B5 (B5b under autograd) on each rank's own heads,
-an 'R' layer its doubling scan on each rank's channels (models/ssm.py
-``_apply_ssd_placed``, models/rglru.py ``_apply_rglru_placed``).  Where
-the heads do not divide over ``model`` (the d_model fallback of
-``sharding.param_pspec``), DTensor contracts the sharded d_model and
-replicates the attention's operands, and an 'S' layer scans every head
-on every rank: correct, not parallel.  Transport: NCCL for CUDA
-tensors, gloo for CPU tensors (``launch/mesh.py _check_transport``);
-nothing is staged through the host.
+Scope (:func:`check_scope`): every config the port carries — attention
+layers ('G', 'L' windows, 'E' encoder layers), Mamba-2 SSD ('S') and
+RG-LRU ('R') layers, dense MLPs (GLU or plain with biases) and MoE FFNs,
+RMSNorm or LayerNorm, RoPE or sinusoidal positions, softcaps, scaled
+embeddings, a vision prefix of patches or an audio encoder with
+cross-attention (all ten archs); algo 'asgd', inner 'sgd', 'leaves'
+mode, a round every step, the blend through B2r/B2a
+(``ASGDConfig(use_fused=True)``) and wire None or "dtype".  Every other
+option raises NotImplementedError naming its ROADMAP item.  An 'S' layer
+runs kernel B5 (B5b under autograd) on each rank's own heads, an 'R'
+layer its doubling scan on each rank's channels (models/ssm.py
+``_apply_ssd_placed``, models/rglru.py ``_apply_rglru_placed``).  An MoE
+FFN is expert-parallel (models/moe.py ``_apply_placed``): routing is
+identical on every ``model`` rank (the input and router whole, the
+global E in C and the slot numbering), each rank runs its own experts on
+the pairs they own, the combine is summed over ``model`` once, the aux
+loss is differentiated once (its gradient scaled by 1/model before it
+meets the partial views), and dispatch groups and positions are global
+over the data axes (whole in training, where workers are sliced and a
+worker's batch never is).  Where the heads do not divide over ``model``
+(the d_model fallback of ``sharding.param_pspec``), DTensor contracts
+the sharded d_model and replicates the attention's operands, an 'S'
+layer scans every head on every rank, and where the experts do not
+divide every rank runs every expert: correct, not parallel.
+Transport: NCCL for CUDA tensors, gloo for CPU tensors
+(``launch/mesh.py _check_transport``); nothing is staged through the
+host.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -99,27 +109,20 @@ from .mesh import (_roll_workers_manual, _worker_group, data_axes,
                    shard_workers)
 
 
-def _not_ported(what: str, item: str,
-                step: str = "train step") -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"tensor-parallel {step}: {what} is not ported (ROADMAP Queue A "
-        f"item {item})")
-
-
-def _model_features(cfg):
-    """(what, ROADMAP item, present) of each model feature the DTensor path
-    does not carry."""
-    return (("MoE FFNs", "15e (MoE)", cfg.n_experts > 0),)
+        f"tensor-parallel train step: {what} is not ported (ROADMAP Queue "
+        f"A item {item})")
 
 
 def check_scope(cfg, *, algo, inner, gcfg, acfg, pack_spec=None,
                 pipelined=False, lr_schedule=None) -> None:
     """Raise NotImplementedError for what the tensor-parallel step does not
-    carry, naming the ROADMAP item that queues it: the model by its
-    features (``_model_features``), the step by its options."""
-    for what, item, present in _model_features(cfg):
-        if present:
-            raise _not_ported(f"{what} ({cfg.name!r})", item)
+    carry, naming the ROADMAP item that queues it: every model the port
+    carries is (``models.blocks.check_supported``), not every option of
+    the step."""
+    from ..models.blocks import check_supported
+    check_supported(cfg)
     if pack_spec is not None or pipelined or lr_schedule is not None:
         raise ValueError(
             "mesh= runs the pytree engine; the packed and pipelined engines "
@@ -146,11 +149,10 @@ def check_scope(cfg, *, algo, inner, gcfg, acfg, pack_spec=None,
 
 def check_serve_scope(cfg) -> None:
     """Raise NotImplementedError for a model the tensor-parallel serve does
-    not carry (MoE: ROADMAP item 15e), as :func:`check_scope` does for
-    training."""
-    for what, item, present in _model_features(cfg):
-        if present:
-            raise _not_ported(f"{what} ({cfg.name!r})", item, "serve")
+    not carry: it carries every one the port serves
+    (``models.blocks.check_supported``)."""
+    from ..models.blocks import check_supported
+    check_supported(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -309,29 +311,59 @@ def _check_placed(tree, what: str, how: str) -> None:
                          f"placed on the mesh (use {how})")
 
 
+def _moe_slice(cfg, mesh, local: int, rows):
+    """The block a serve step of an MoE config runs in: ``models/moe.py
+    batch_slice`` where the rank's ``local`` rows are its data slice of
+    ``rows`` (the whole batch's), nothing where they are the whole batch
+    (or the config has no experts).  On a mesh of several data groups an
+    MoE config must say which (``rows``): its dispatch groups and
+    capacity are the global batch's."""
+    from ..models import moe
+    if not cfg.n_experts:
+        return contextlib.nullcontext()
+    groups = n_worker_groups(mesh)
+    if rows is None and groups > 1:
+        raise ValueError(
+            "tensor-parallel serve of an MoE config over data groups: pass "
+            "rows=, the whole batch's rows (the dispatch groups are the "
+            "global batch's)")
+    if rows is None or rows == local:
+        return contextlib.nullcontext()
+    if rows != local * groups:
+        raise ValueError(f"tensor-parallel serve: {local} rows a rank are "
+                         f"not a slice of {rows} over {groups} data groups")
+    return moe.batch_slice(dist.get_rank(_worker_group(mesh)), groups,
+                           functools.partial(gather_workers, mesh=mesh))
+
+
 def make_serve_steps(cfg, mesh):
     """(prefill, decode) of ``launch/steps.py make_prefill_step`` /
     ``make_decode_step(mesh=)``: ``models.model``'s prefill and
     decode_step on :func:`place_serve_params`' leaves under
     ``implicit_replication`` (tokens, patches, frames and position tables
     count as replicated) with the model mesh ambient.  ``cfg``: the
-    serving config (``_serve_cfg``)."""
+    serving config (``_serve_cfg``).  ``rows``: the whole batch's rows
+    where the rank's batch is its :func:`serve_slice` of it (None: the
+    batch is whole on the rank); a config with MoE on a mesh of several
+    data groups needs it (:func:`_moe_slice`)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from ..models import model as M
     check_serve_scope(cfg)
     mm = model_mesh(mesh)
 
-    def prefill(params, batch, cache_len=None):
+    def prefill(params, batch, cache_len=None, rows=None):
+        sliced = _moe_slice(cfg, mesh, batch["tokens"].shape[0], rows)
         _check_placed(params, "params", "place_serve_params")
-        with implicit_replication(), mesh_context(mm):
+        with implicit_replication(), mesh_context(mm), sliced:
             last, cache = M.prefill(cfg, params, batch, cache_len=cache_len)
             return last, _place_prefill_cache(mm, cache, cfg)
 
-    def decode(params, token, pos, cache):
+    def decode(params, token, pos, cache, rows=None):
+        sliced = _moe_slice(cfg, mesh, token.shape[0], rows)
         _check_placed(params, "params", "place_serve_params")
         _check_placed(cache, "cache", "the prefill or place_cache")
-        with implicit_replication(), mesh_context(mm):
+        with implicit_replication(), mesh_context(mm), sliced:
             return M.decode_step(cfg, params, token, pos, cache)
     return prefill, decode
 

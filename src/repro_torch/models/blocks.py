@@ -307,17 +307,32 @@ def _batch_shard(cfg: ModelConfig, h) -> bool:
 
 
 def _ffn(cfg: ModelConfig, p, x, norm):
-    """The layer's FFN residual and its aux loss (W,), None without MoE."""
+    """The layer's FFN residual and its aux loss (W,), None without MoE.
+    On placed leaves the MoE (models/moe.py's expert parallelism) takes
+    its input whole (``_segment_in``) and its ``Partial`` output is summed
+    over ``model`` once (``_segment_out``'s reduce-scatter, else
+    :func:`_summed`)."""
     if "moe" in p:
-        h, aux = apply_moe(p["moe"], norm(p["ln2"], x),
+        h, aux = apply_moe(p["moe"], _segment_in(cfg, norm(p["ln2"], x)),
                            cfg.experts_per_token, act=cfg.act,
                            capacity_factor=cfg.capacity_factor,
                            dispatch_groups=cfg.moe_dispatch_groups)
-        return x + h, aux
+        return x + _summed(_segment_out(cfg, h)), aux
     if "mlp" in p:
         x = x + _segment_out(cfg, _mlp(cfg, p["mlp"],
                                        _segment_in(cfg, norm(p["ln2"], x))))
     return x, None
+
+
+def _summed(t):
+    """A ``Partial`` DTensor all-reduced to ``Replicate()``; anything else
+    itself."""
+    if not placed(t):
+        return t
+    from torch.distributed.tensor import Partial, Replicate
+    if not any(isinstance(p, Partial) for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, (Replicate(),) * t.device_mesh.ndim)
 
 
 def _segment_in(cfg: ModelConfig, h):
@@ -447,7 +462,7 @@ def apply_layer_decode(cfg: ModelConfig, ltype: str, p, x, pos: int, cache):
     if "moe" in p:
         out, _ = apply_moe_decode(p["moe"], norm(p["ln2"], x),
                                   cfg.experts_per_token, act=cfg.act)
-        x = x + out
+        x = x + _summed(out)
     elif "mlp" in p:
         x = x + _mlp(cfg, p["mlp"], norm(p["ln2"], x))
     return x

@@ -21,8 +21,10 @@ an f32 copy of the single-device cache) within 1e-5 of the largest,
 generate(mesh=)'s tokens equal, every cache leaf placed by cache_pspec,
 a decode step's collectives the same at two cache lengths.
 
-'S' and 'R' layers: the cases of tests/test_torch_tensor_parallel_ssm.py
-(tests/_torch_tp_ssm_ranks.py), on numpy weights (worker 0 of each
+'S' and 'R' layers, and MoE FFNs: the cases of
+tests/test_torch_tensor_parallel_ssm.py (tests/_torch_tp_ssm_ranks.py)
+and of tests/test_torch_tensor_parallel_moe.py
+(tests/_torch_tp_moe_ranks.py), on numpy weights (worker 0 of each
 training draw as the base of its workers' starts), against the
 single-device port at that test's gates: training's losses, gates and
 params as above and each gradient part within 1e-4 of its largest
@@ -38,6 +40,7 @@ import sys
 import numpy as np
 import torch
 
+import _torch_tp_moe_ranks as M
 import _torch_tp_ranks as R
 import _torch_tp_serve_ranks as S
 import _torch_tp_ssm_ranks as T
@@ -198,12 +201,13 @@ def serve_check(out):
     return ok
 
 
-def ssm_inputs():
-    """tests/_torch_tp_ssm_ranks.py's inputs from numpy (worker 0 of each
-    case's training draw as the base, T.worker_starts beside it) and each
-    training case's (cfg, tokens, draws)."""
+def layer_inputs(ranks):
+    """The inputs of ``ranks`` (tests/_torch_tp_ssm_ranks.py or
+    _torch_tp_moe_ranks.py: its TRAIN and SERVE cases) from numpy (worker
+    0 of each case's training draw as the base, T.worker_starts beside
+    it) and each training case's config."""
     inputs, train = {}, {}
-    for seed, (name, (arch, cuts, rows)) in enumerate(T.TRAIN.items()):
+    for seed, (name, (arch, cuts, rows)) in enumerate(ranks.TRAIN.items()):
         cfg = T.config(arch, cuts, get_arch)
         base = {k: v[0] for k, v in R.weights(cfg, seed).items()}
         inputs.update({f"train.{name}.w.{k}": v for k, v in
@@ -217,7 +221,7 @@ def ssm_inputs():
             inputs[f"train.{name}.draw.{t}"] = np.asarray(d)
         train[name] = cfg
     for seed, (name, (arch, cuts, rows, prompt)) in enumerate(
-            T.SERVE.items()):
+            ranks.SERVE.items()):
         cfg = T.config(arch, cuts, get_arch)
         inputs.update({f"{name}.w.{k}": v[0] for k, v in
                        R.weights(cfg, seed + 10).items()})
@@ -226,16 +230,16 @@ def ssm_inputs():
     return inputs, train
 
 
-def ssm_check(out):
-    """The 'S'/'R' ranks against the single-device port: training's
-    losses, gates and params at the train cases' gates, each gradient
-    part within 1e-4 of its largest magnitude; serving's logits within
-    1e-5 of the largest, tokens equal, placements, collectives alike at
-    two lengths and none reading the cache.  True if every case meets
-    them."""
+def layer_check(out, ranks, what):
+    """The ranks of ``ranks`` ('S'/'R' or MoE, :func:`layer_inputs`)
+    against the single-device port: training's losses, gates and params
+    at the train cases' gates, each gradient part within 1e-4 of its
+    largest magnitude; serving's logits within 1e-5 of the largest,
+    tokens equal, placements, collectives alike at two lengths and none
+    reading the cache.  True if every case meets them."""
     out.mkdir(parents=True, exist_ok=True)
-    inputs, train = ssm_inputs()
-    procs, logs = R.start_ranks(out, inputs, script=T.__file__)
+    inputs, train = layer_inputs(ranks)
+    procs, logs = R.start_ranks(out, inputs, script=ranks.__file__)
     torch.set_num_threads(1)
     try:
         want = {}
@@ -260,7 +264,7 @@ def ssm_check(out):
                                     for p, x in SH.tree_paths(params)},
                           {R.path_key(p): x.numpy()
                            for p, x in SH.tree_paths(grads)})
-        for name, (arch, cuts, _, prompt) in T.SERVE.items():
+        for name, (arch, cuts, _, prompt) in ranks.SERVE.items():
             cfg = T.config(arch, cuts, get_arch)
             params = params_from_numpy(R.nest({
                 k[len(name) + 3:]: v for k, v in inputs.items()
@@ -276,7 +280,7 @@ def ssm_check(out):
                 p.kill()
         for f in logs:
             f.close()
-    print(f"torch {torch.__version__}: 'S'/'R' ranks exited {codes}",
+    print(f"torch {torch.__version__}: {what} ranks exited {codes}",
           flush=True)
     if any(codes):
         print((out / f"rank{codes.index(next(filter(None, codes)))}.log")
@@ -300,11 +304,12 @@ def ssm_check(out):
             for p, w in T.grad_parts(cfg, k, v).items())
         good = rel <= 1e-5 and gates and close and gerr <= 1e-4
         ok &= good
-        print(f"train {name}: loss rel {rel:.3e}, gates equal {gates}, "
-              f"params within 1e-5 {close}, largest gradient part error "
-              f"{gerr:.3e} of its largest: {'ok' if good else 'MISSED'}",
+        print(f"{what} train {name}: loss rel {rel:.3e}, gates equal "
+              f"{gates}, params within 1e-5 {close}, largest gradient part "
+              f"error {gerr:.3e} of its largest: "
+              f"{'ok' if good else 'MISSED'}",
               flush=True)
-    for name, (arch, cuts, rows, prompt) in T.SERVE.items():
+    for name, (arch, cuts, rows, prompt) in ranks.SERVE.items():
         cfg = T.config(arch, cuts, get_arch)
         prefill, toks = want[f"serve.{name}"]
 
@@ -326,9 +331,10 @@ def ssm_check(out):
                     and int(rk[f"{name}.comms_cache"]) == 0 for rk in got)
         good = max(errs) <= 1e-5 and same_toks and placed and comms
         ok &= good
-        print(f"serve {name}: max logit err {max(errs):.3e} of the largest, "
-              f"tokens equal {same_toks}, placements {placed}, collectives "
-              f"alike at two lengths and none on the cache {comms}: "
+        print(f"{what} serve {name}: max logit err {max(errs):.3e} of the "
+              f"largest, tokens equal {same_toks}, placements {placed}, "
+              f"collectives alike at two lengths and none on the cache "
+              f"{comms}: "
               f"{'ok' if good else 'MISSED'}", flush=True)
     return ok
 
@@ -337,7 +343,8 @@ def main(out_dir):
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     serve_ok = serve_check(out / "serve")
-    serve_ok &= ssm_check(out / "ssm")
+    serve_ok &= layer_check(out / "ssm", T, "'S'/'R'")
+    serve_ok &= layer_check(out / "moe", M, "MoE")
     inputs, batches = {}, {}
     for seed, arch in enumerate(R.ARCHS):
         ins, batches[arch] = case_inputs(arch, seed)

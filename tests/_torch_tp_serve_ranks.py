@@ -174,11 +174,11 @@ class Recorded:
     def decode(self, cfg, mesh):
         step = self.makers[1](cfg, mesh)
 
-        def run(*args):
+        def run(*args, **kw):
             comms = (Collectives(args[3]) if self.t == 1
                      else contextlib.nullcontext())
             with comms:
-                logits, cache = step(*args)
+                logits, cache = step(*args, **kw)
             if self.t == 1:
                 self.out[f"{self.name}.comms"] = np.array(comms.ops)
                 self.out[f"{self.name}.comms_cache"] = np.int64(
@@ -231,7 +231,8 @@ def serve_case(mesh, inp, out, name, cfg, rows, prompt):
         for i in range(NEW - 1):
             f32 = tree_map(lambda c: c.float(), plain_caches[i])
             logits, _ = decode(params, TP.serve_slice(mesh, plain_toks[:, i]),
-                               start + i, TP.place_cache(mesh, f32, cfg))
+                               start + i, TP.place_cache(mesh, f32, cfg),
+                               rows=rows)
             out[f"{name}.forced.{i + 1}"] = logits.full_tensor().numpy()
             out[f"{name}.forced_plain.{i + 1}"] = plain_decode(
                 plain, plain_toks[:, i], start + i, f32)[0].numpy()
@@ -242,7 +243,8 @@ def serve_case(mesh, inp, out, name, cfg, rows, prompt):
             out[f"{name}.long.{R.path_key(path)}.placement"] = np.array(
                 R.placement_name(x.placements))
         with Collectives(big) as comms:
-            decode(params, TP.serve_slice(mesh, plain_toks[:, 0]), start, big)
+            decode(params, TP.serve_slice(mesh, plain_toks[:, 0]), start, big,
+                   rows=rows)
         out[f"{name}.comms_long"] = np.array(comms.ops)
         out[f"{name}.comms_long_cache"] = np.int64(comms.cache_reads)
 

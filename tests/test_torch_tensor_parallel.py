@@ -443,19 +443,11 @@ OUT_OF_SCOPE = {
     "plain blend": dict(use_fused=False),
     "silent flag": dict(silent=True),
     "gossip_every 2": dict(gcfg=dict(gossip_every=2)),
-    # the 'R' and 'S' archs are carried (test_torch_tensor_parallel_ssm
-    # .py); the step's other refusals still hold for them
+    # the 'R', 'S' and MoE archs are carried (test_torch_tensor_parallel_
+    # ssm.py, _moe.py); the step's other refusals still hold for them
     "recurrentgemma-9b": dict(arch="recurrentgemma-9b",
                               gcfg=dict(wire_format="int8")),
     "mamba2-370m": dict(arch="mamba2-370m", inner="momentum"),
-    # a feature under an in-scope name is refused by the feature: MoE
-    # beside 'S' layers
-    "qwen3 with 'S' layers": dict(arch="qwen3-14b",
-                                  cfg=dict(pattern_cycle=("G", "S"),
-                                           n_experts=4,
-                                           experts_per_token=2)),
-    "MoE qwen3": dict(arch="qwen3-14b",
-                      cfg=dict(n_experts=4, experts_per_token=2)),
 }
 
 

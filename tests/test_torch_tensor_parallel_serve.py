@@ -341,31 +341,6 @@ def test_greedy_tokens_take_the_first_largest(launch):
         np.testing.assert_array_equal(rk["greedy.got"], rk["greedy.want"])
 
 
-MOE = dict(n_experts=4, experts_per_token=2)
-# 'R' and 'S' layers are served (test_torch_tensor_parallel_ssm.py); MoE
-# is refused whatever layers hold it
-OUT_OF_SCOPE = {
-    "recurrentgemma-9b": dict(arch="recurrentgemma-9b", cfg=MOE),
-    "mamba2-370m": dict(arch="mamba2-370m", cfg=MOE),
-    "granite-moe-1b-a400m": dict(arch="granite-moe-1b-a400m"),
-    "qwen3 with 'S' layers": dict(arch="qwen3-14b",
-                                  cfg=dict(pattern_cycle=("G", "S"), **MOE)),
-    "MoE qwen3": dict(arch="qwen3-14b", cfg=MOE),
-}
-
-
-@pytest.mark.parametrize("option", sorted(OUT_OF_SCOPE))
-@pytest.mark.parametrize("maker", (make_prefill_step, make_decode_step))
-def test_out_of_scope_archs_raise(option, maker):
-    """MoE raises NotImplementedError naming ROADMAP item 15e on the mesh
-    path, beside 'R' or 'S' layers too, before the mesh is touched."""
-    kw = OUT_OF_SCOPE[option]
-    cfg = dataclasses.replace(get_arch(kw["arch"]).reduced(),
-                              **kw.get("cfg", {}))
-    with pytest.raises(NotImplementedError, match="item 15e"):
-        maker(cfg, mesh=object())
-
-
 class _Mesh:
     """Stands for a ("data", "model") DeviceMesh where none is touched."""
     mesh_dim_names = ("data", "model")

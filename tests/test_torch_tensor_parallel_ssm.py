@@ -68,8 +68,7 @@ from repro_torch.core import asgd as tasgd
 from repro_torch.core import gossip as tg
 from repro_torch.launch import sharding as SH
 from repro_torch.launch import tensor_parallel as TP
-from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
-                                      make_train_step, tree_loss_and_grad)
+from repro_torch.launch.steps import make_train_step, tree_loss_and_grad
 from repro_torch.models import model as TM
 
 import _torch_tp_ranks as R
@@ -125,10 +124,11 @@ def make_train_case(name, seed):
             "draws": [jax_draws(jax.random.key(k), jcfg) for k in keys]}
 
 
-def run_train_reference(name, case):
+def run_train_reference(name, case, cfg=None):
     """Losses, gates and n_good of each step, the final params, and the
-    gradient of the first batch's summed worker losses."""
-    cfg = train_cfg(name, jget_arch)
+    gradient of the first batch's summed worker losses (``cfg``: the
+    reference's config, by default the case's)."""
+    cfg = cfg or train_cfg(name, jget_arch)
     gcfg = jg.GossipConfig(**T.gossip_kw())
     jp = jax.tree.map(jnp.asarray, R.nest(case["w"]))
 
@@ -153,10 +153,10 @@ def numpy_leaves(tree):
             SH.tree_paths(jax.tree.map(np.asarray, tree))}
 
 
-def run_train_single(name, case):
+def run_train_single(name, case, cfg=None):
     """The same on the port's single-device pytree step (B2r/B2a's plain
     versions) and tree_loss_and_grad."""
-    cfg = train_cfg(name)
+    cfg = cfg or train_cfg(name)
     gcfg = tg.GossipConfig(**T.gossip_kw())
     params = params_from_numpy(R.nest(case["w"]))
     _, grads = tree_loss_and_grad(
@@ -515,24 +515,6 @@ def test_decode_moves_no_cache(launch, name):
         assert ops and ops == list(rk[f"{name}.comms_long"])
         assert int(rk[f"{name}.comms_cache"]) == 0
         assert int(rk[f"{name}.comms_long_cache"]) == 0
-
-
-MOE = ("granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b")
-
-
-@pytest.mark.parametrize("arch", MOE)
-@pytest.mark.parametrize("maker", ("train", "prefill", "decode"))
-def test_moe_raises_naming_15e(arch, maker):
-    """MoE configs still raise NotImplementedError naming ROADMAP item
-    15e on the mesh path, before the mesh is touched."""
-    cfg = get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match="item 15e"):
-        if maker == "train":
-            make_train_step(cfg, gcfg=tg.GossipConfig(), mesh=object(),
-                            acfg=tasgd.ASGDConfig(eps=R.EPS, use_fused=True))
-        else:
-            {"prefill": make_prefill_step,
-             "decode": make_decode_step}[maker](cfg, mesh=object())
 
 
 @pytest.mark.parametrize("arch", ("mamba2-370m", "recurrentgemma-9b"))
