@@ -237,8 +237,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      process): smollm-135m x train_4k on the pytree, packed and pipelined
      engines, mamba2-370m x prefill_32k (B5 modeled) and x train_4k
      pipelined (B5 twice a layer and B5b once modeled), mamba2-370m x
-     decode_32k; each
-     record's dominant term, useful ratio, peak and fits, and trace times;
+     decode_32k, qwen2.5-14b and granite-moe-1b-a400m x train_4k; each
+     record's layout, dominant term, useful ratio, peak and fits, and
+     trace times; the tensor-parallel pairs (the pytree train step and
+     the serve steps: one rank's shards over ``model``) each beside the
+     replicated peak of the parent tree's trace (DRYRUN_REPLICATED_GIB),
+     the train pairs' argument bytes their placed bytes and their peaks
+     below the replicated ones;
      B5's and B5b's workspace sizes as the meta branches model them
      against the kernels' own (``ssd_workspace_floats``,
      ``ssd_bwd_workspace_floats``);
@@ -250,7 +255,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      modeled B1r/B1a calls equal kernels.launch_counts(), and the modeled
      peak over ``torch.cuda.max_memory_allocated()`` (above what was
      allocated before the state) within PEAK_RATIO, printed with the
-     tracker's own reading on the card; the step rematerializes.
+     tracker's own reading on the card; the step rematerializes;
+ 41. [dryrun-tp-check] the same for one rank of [tp]'s smollm step (full
+     smollm-135m, W=4, batch 2, seq 128, the fused blend, tensor-parallel
+     on a (1, 1) NCCL mesh): the meta trace of the dry-run's placed layout
+     against the step run once on the card — FLOPs exact, the modeled
+     B2r/B2a calls equal kernels.launch_counts(), argument bytes equal,
+     the peak ratio within PEAK_RATIO.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and last the device JSON line.  Without a GPU, or without the repo's
 sources beside it, it exits non-zero and prints no result.
@@ -4218,7 +4229,17 @@ DRYRUN_PAIRS = (("smollm-135m", "train_4k", "pytree"),
                 ("smollm-135m", "train_4k", "pipelined"),
                 ("mamba2-370m", "prefill_32k", "pytree"),
                 ("mamba2-370m", "train_4k", "pipelined"),
-                ("mamba2-370m", "decode_32k", "pytree"))
+                ("mamba2-370m", "decode_32k", "pytree"),
+                ("qwen2.5-14b", "train_4k", "pytree"),
+                ("granite-moe-1b-a400m", "train_4k", "pytree"))
+# the peak (GiB) each tensor-parallel pair's trace had while the dry-run
+# replicated every worker slice over `model` (the parent tree's
+# `launch.dryrun --all --mesh both`, torch 2.13 on the CPU; PERF.md §6)
+DRYRUN_REPLICATED_GIB = {("smollm-135m", "train_4k"): 41.64,
+                         ("mamba2-370m", "prefill_32k"): 26.59,
+                         ("mamba2-370m", "decode_32k"): 1.78,
+                         ("qwen2.5-14b", "train_4k"): 287.77,
+                         ("granite-moe-1b-a400m", "train_4k"): 77.25}
 DRYRUN_FULL_BUDGET_S = 3.0           # full depth where it is predicted to
 #                                      trace within this
 PEAK_RATIO = (0.95, 1.05)            # [dryrun-check]: modeled peak / card's
@@ -4237,7 +4258,12 @@ def phase_dryrun(torch):
         rec = D.run_pair(arch, shape, multi_pod=False, engine=engine,
                          full_budget_s=DRYRUN_FULL_BUDGET_S)
         records.append(rec)
-        log(f"[dryrun] {arch} x {shape} ({engine}): compute "
+        repl = (DRYRUN_REPLICATED_GIB.get((arch, shape))
+                if rec["layout"] == "tensor_parallel" else None)
+        placed = ("" if repl is None else
+                  f" (replicated over model, the parent tree's trace: "
+                  f"{repl:.2f} GiB)")
+        log(f"[dryrun] {arch} x {shape} ({engine}, {rec['layout']}): compute "
             f"{rec['compute_s'] * 1e3:.3f} ms, memory "
             f"{rec['memory_s'] * 1e3:.3f} ms, collective "
             f"{rec['collective_s'] * 1e3:.3f} ms -> {rec['dominant']}; "
@@ -4245,6 +4271,9 @@ def phase_dryrun(torch):
             f"{rec['hlo_flops']:.4e}, bytes {rec['hlo_bytes']:.4e}; peak "
             f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB"
             f"{' (extrapolated)' if rec['memory']['extrapolated'] else ''}"
+            f"{placed}, argument bytes "
+            f"{rec['memory']['argument_bytes'] / 2**30:.2f} GiB, placed "
+            f"{rec['memory']['placed_bytes'] / 2**30:.2f} GiB"
             f", fits {rec['fits']}; kernels "
             f"{ {k: v['launches'] for k, v in rec['kernels'].items()} }; "
             f"trace shallow {rec['trace_shallow_s']} s, full "
@@ -4256,6 +4285,17 @@ def phase_dryrun(torch):
                     "launches") != 1:
                 raise AssertionError(f"[dryrun] {a} {e}: B1a not modeled "
                                      f"once a step: {rec['kernels']}")
+    for rec, (a, s, e) in zip(records, DRYRUN_PAIRS):
+        placed = s != "train_4k" or e == "pytree"
+        if rec["layout"] != ("tensor_parallel" if placed else "worker_split"):
+            raise AssertionError(f"[dryrun] {a} {s} {e}: layout "
+                                 f"{rec['layout']}")
+        mem = rec["memory"]
+        if placed and s == "train_4k" and (
+                mem["argument_bytes"] != mem["placed_bytes"]
+                or mem["peak_bytes"] / 2**30 >= DRYRUN_REPLICATED_GIB[(a, s)]):
+            raise AssertionError(f"[dryrun] {a} {s}: a rank's share not "
+                                 f"traced: {mem}")
     for rec in records:       # B5 (and B5b in training) once an 'S' layer,
         n = get_arch(rec["arch"]).n_layers   # B5 twice under remat
         want = {"prefill_32k": {"ssd_scan": n},
@@ -4376,6 +4416,105 @@ def phase_dryrun_check(torch, device):
     torch.cuda.empty_cache()
 
 
+def phase_dryrun_tp_check(torch, device):
+    """[dryrun-tp-check]: the dry-run's meta trace of one rank of [tp]'s
+    smollm step (tensor-parallel at a (1, 1) mesh, the fused blend)
+    against that step run once on the card at one NCCL rank under the same
+    counters."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.asgd import ASGDConfig
+    from repro_torch.core.gossip import init_gossip_state
+    from repro_torch.kernels.gossip_blend.kernel import APPLY_W, REDUCE_W
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import tensor_parallel as TP
+    from repro_torch.launch.steps import make_train_step
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    cfg = get_arch("smollm-135m")
+    seq = 128
+    shape = ShapeConfig("tp", seq, 2 * W, "train")
+    gcfg = pytree_gcfg()
+    acfg = ASGDConfig(eps=TP_EPS, use_fused=True)
+    with MM.fake_process_group(1):
+        meta = D.trace_step(cfg, shape, MM.make_host_mesh(1, 1, device="cpu"),
+                            gcfg, workers=W, acfg=acfg)
+    t_meta = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dtp_") as tmp:
+        MM.init_ranks(str(pathlib.Path(tmp) / "store"), 0, 1, device)
+        try:
+            mesh = MM.make_host_mesh(1, 1, device=device)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            params = TP.place_params(mesh, tp_starts(torch, cfg, W, device))
+            gossip = init_gossip_state(params, gcfg)
+            gen = torch.Generator(device=device).manual_seed(2)
+            batch = {"tokens": MM.shard_workers(torch.randint(
+                0, cfg.vocab, (W, 2, seq), device=device, generator=gen,
+                dtype=torch.int32), mesh)}
+            step = make_train_step(cfg, gcfg=gcfg, acfg=acfg, mesh=mesh)
+            args = {"params": params, "gossip": gossip, "opt_state": 0,
+                    "batch": batch, "shift_idx": 0, "block_idx": 0}
+            del params, gossip, batch
+            real = D.arg_tensors(args)
+            got = [(tuple(t.shape), t.dtype) for t in real]
+            real_bytes = sum(t.numel() * t.element_size() for t in real)
+            if got != meta["arg_shapes"] or real_bytes != meta["arg_bytes"]:
+                raise AssertionError(
+                    f"[dryrun-tp-check] arguments: meta {meta['arg_shapes']} "
+                    f"({meta['arg_bytes']} B) != card {got} ({real_bytes} B)")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            with D.Counters(real) as c:
+                out = step(*args.values())
+                torch.cuda.synchronize()
+            del real
+            counts = K.launch_counts()
+            card_peak = torch.cuda.max_memory_allocated() - base
+            loss = float(out[3]["loss"])
+            del out, args, step
+        finally:
+            dist.destroy_process_group()
+    if not math.isfinite(loss):
+        raise AssertionError(f"[dryrun-tp-check] loss {loss}")
+    modeled = {}
+    for k in meta["kernels"]:
+        modeled[k["name"]] = modeled.get(k["name"], 0) + 1
+    if c.flops != meta["flops"]:
+        raise AssertionError(f"[dryrun-tp-check] aten FLOPs: meta "
+                             f"{meta['flops']} != card {c.flops}")
+    names = (REDUCE_W, APPLY_W)
+    if {n: counts.get(n, 0) for n in names} != {
+            n: modeled.get(n, 0) for n in names} or modeled.get(APPLY_W) != 1:
+        raise AssertionError(f"[dryrun-tp-check] launches: modeled "
+                             f"{modeled} != card {counts}")
+    ratio = meta["peak"] / card_peak
+    if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+        raise AssertionError(f"[dryrun-tp-check] peak: modeled "
+                             f"{meta['peak']} B / card {card_peak} B = "
+                             f"{ratio:.4f}, outside {PEAK_RATIO}")
+    log(f"[dryrun-tp-check] [tp]'s smollm-135m step (W={W}, seq {seq}, "
+        f"fused blend, tensor-parallel on a (1, 1) NCCL mesh): aten FLOPs "
+        f"meta {meta['flops']} = card {c.flops}; B2r/B2a modeled {modeled} "
+        f"= launched {counts}; argument bytes {meta['arg_bytes']} = "
+        f"{real_bytes}; aten bytes meta {meta['bytes']}, card {c.bytes}; "
+        f"traced collectives meta {meta['collectives']}, card "
+        f"{c.collectives}; peak: modeled {meta['peak'] / 2**30:.3f} GiB, "
+        f"tracker on the card {c.peak / 2**30:.3f} GiB, "
+        f"max_memory_allocated above the {base / 2**30:.3f} GiB before "
+        f"{card_peak / 2**30:.3f} GiB, modeled / card {ratio:.4f} (gate "
+        f"{PEAK_RATIO}); loss {loss:.6f}; meta trace {t_meta:.1f} s, "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script — "
@@ -4467,6 +4606,7 @@ def main() -> int:
     phase_qwen_train(torch, device)
     phase_dryrun(torch)
     phase_dryrun_check(torch, device)
+    phase_dryrun_tp_check(torch, device)
 
     gb = "src/repro/kernels/gossip_blend/kernel.py"
     km = "src/repro/kernels/kmeans_assign/kernel.py"

@@ -387,6 +387,18 @@ def _blend(w_blk, ext_blk, g_blk, gate, acfg: ASGDConfig):
     return out.to(w_blk.dtype)
 
 
+def blend_group(params, grads, ext, groups, ext_idx, gate,
+                acfg: ASGDConfig):
+    """'leaves' mode's plain update: every leaf of group ``ext_idx``
+    blended with its external under ``gate`` (:func:`_blend`), the rest
+    stepped ``w - eps*dw``."""
+    def upd(w, g, e, gi):
+        if gi == ext_idx:
+            return _blend(w, e, g, gate, acfg)
+        return (w.float() - acfg.eps * g.float()).to(w.dtype)
+    return tree_map(upd, params, grads, ext, groups)
+
+
 def _fused_blend(params, grads, ext, cfg: GossipConfig, acfg: ASGDConfig,
                  groups=None, ext_idx=None, gate_scale=None, *, mesh=None,
                  reduce_groups=None):
@@ -501,13 +513,8 @@ def _apply_leaves(params, grads, state: GossipState, shift_idx: int,
         gate = _gossip_gate(params, grads, ext, acfg, groups, ext_idx)
         if gate_scale is not None:
             gate = gate * gate_scale
-
-        def upd(w, g, e, gi):
-            if gi == ext_idx:
-                return _blend(w, e, g, gate, acfg)
-            return (w.float() - acfg.eps * g.float()).to(w.dtype)
-
-        new_params = tree_map(upd, params, grads, ext, groups)
+        new_params = blend_group(params, grads, ext, groups, ext_idx, gate,
+                                 acfg)
     new_state = GossipState(buf=sent, buf_idx=block_idx,
                             step=state.step + 1, buf_live=sent_live)
     return new_params, new_state, {"gate": gate, "n_good": gate.sum()}

@@ -344,6 +344,8 @@ def pack_group_mask(groups, block_idx: int, spec: WPackSpec, device=None):
     off = 0
     for gid, size in zip(gids, spec.sizes):
         if int(gid) == block_idx:
-            flat[off:off + size] = 1.0
+            # fill_: one op on every device (an item assignment dispatches
+            # fill_ on the CPU, a copy of a scalar tensor on meta)
+            flat[off:off + size].fill_(1.0)
         off += size
     return flat.reshape(spec.rows, LANE)

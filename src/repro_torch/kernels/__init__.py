@@ -34,8 +34,9 @@ of the kernel's shapes and dtypes and, inside :func:`record_modeled`, note
 the launch with its modeled work — the bytes and operations of the
 kernel's bound (PERF.md §6).  On CPU operands inside
 :func:`record_modeled` the plain version runs hidden from the dry-run's
-counters (:func:`plain_modeled`) and the same work is noted, so a CPU
-step and its meta trace count alike.  These notes are not launches:
+counters (:func:`plain_modeled`; its outputs allocated where they see
+them) and the same work is noted, so a CPU step and its meta trace count
+alike.  These notes are not launches:
 :func:`launch_counts` never sees them.
 """
 from __future__ import annotations
@@ -110,15 +111,27 @@ def modeled_launch(name: str, work) -> None:
 def plain_modeled(name: str, work, plain, *args, **kw):
     """``plain(*args, **kw)`` — a kernel's plain version on CPU operands.
     Inside :func:`record_modeled` it runs with the dispatch modes off (the
-    dry-run's counters do not see its ops) and the kernel's work is noted
-    in their place."""
+    dry-run's counters do not see its ops), the kernel's work is noted in
+    their place, and its output tensors are allocated where the counters
+    see them (empty, then filled hidden), as the kernel's wrapper
+    allocates them on the card."""
     if not _modeled:
         return plain(*args, **kw)
+    import torch
     from torch.utils._python_dispatch import _disable_current_modes
+    from torch.utils._pytree import tree_map
     with _disable_current_modes():
         out = plain(*args, **kw)
     modeled_launch(name, work)
-    return out
+
+    def visible(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        res = torch.empty_like(t)
+        with _disable_current_modes():
+            res.copy_(t)
+        return res
+    return tree_map(visible, out)
 
 
 def kernel_sources() -> list[pathlib.Path]:

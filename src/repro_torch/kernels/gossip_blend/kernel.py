@@ -178,9 +178,12 @@ def batched_work(name: str, wn: int, p: int, rows: int, mask2d):
     if mask2d is None:
         n_on, mask_b = n_mask, 0
     else:
-        n_on = (n_mask if mask2d.device.type == "meta"
-                else int(mask2d.count_nonzero()))
-        mask_b = n_mask * 4
+        n_on, mask_b = n_mask, n_mask * 4
+        if mask2d.device.type != "meta":
+            # the model's own count, hidden from the dry-run's counters
+            from torch.utils._python_dispatch import _disable_current_modes
+            with _disable_current_modes():
+                n_on = int(mask2d.count_nonzero())
     n_all, n_in = wn * n_mask, wn * n_on
     if name == REDUCE_W:
         return (mask_b + n_in * 4 * (2 + p) + wn * p * 12,

@@ -5,19 +5,34 @@ builds and traces, and write its roofline record for one NVIDIA H100.
     python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k \\
         --engine pipelined
 
-The mesh is the reference's production one, (16, 16) ("data", "model") or
-(2, 16, 16) ("pod", "data", "model"), built through ``launch/mesh.py`` in
-this one process as rank 0 of a "fake" process group of 256 (512) ranks:
-it gives the arguments' specs and placements (``launch/sharding.py``) and
-the worker layout, and no collective runs.
+The mesh is the reference's production one, (16, 16) ("data", "model")
+or (2, 16, 16) ("pod", "data", "model"), built through ``launch/mesh.py``
+in this one process as rank 0 of a "fake" process group of 256 (512)
+ranks: it gives the arguments' specs and placements
+(``launch/sharding.py``) and the worker layout, and no collective moves
+data.
 
-What is traced is the step ONE RANK of the port runs: its W_local = W /
-n_worker_groups workers, each a full replica (the port's regions
-replicate every worker's slice over ``model``), or for serving its share
-of the batch over the data axes with the whole model.  Every argument is
-a ``meta`` tensor (``launch/steps.py input_specs``, cut to the rank's
-slice), so nothing is allocated, and the trace runs under three counters
-(:class:`Counters`):
+What is traced is the step ONE RANK of the port runs, in its layout
+(``steps.layout_of``, each record's ``"layout"``):
+
+* "tensor_parallel" — the pytree train step and every serve step, as
+  ``launch/tensor_parallel.py`` runs them: each of the rank's params,
+  gossip buffer and decode cache leaves a DTensor on the mesh's ``model``
+  dim holding the rank's shard (``Shard(d)`` where the spec names
+  ``model``, ``Replicate()`` where it names none), the worker axis and a
+  serving batch the rank's slice over the data axes
+  (:func:`rank_args`); its arguments' bytes are ``placed_bytes``.  The
+  reference's dry-run lowers these steps with their leaves sharded so.
+  The step takes the reference's plain blend (``ASGDConfig(eps=0.01)``)
+  and ``--algo``'s silent and sync.
+* "worker_split" — the packed and pipelined engines: the rank's W_local
+  = W / n_worker_groups workers, each a full replica (the regions
+  replicate every worker's slice over ``model``, as the reference's
+  packed engines do).
+
+Every argument is a ``meta`` tensor (``launch/steps.py input_specs``, cut
+to the rank's shard), so nothing is allocated, and the trace runs under
+the counters of what the rank runs (:class:`Counters`):
 
 * ``FlopCounterMode`` — the aten FLOPs (``hlo_flops`` of the record);
 * bytes read and written by every aten op, unfused (views and empty
@@ -25,6 +40,19 @@ slice), so nothing is allocated, and the trace runs under three counters
   plus each hand-written kernel's modeled bytes;
 * live bytes: every tensor storage from its creation until it is freed;
   the peak is what one rank holds at once, its arguments included.
+* the collectives DTensor's redistributions reach, by the reference's op
+  names and wire factors (``hlo_analysis.traced_collective``).
+
+A DTensor op counts once, as the local ops DTensor runs on the rank's
+shards; DTensor's sharding propagation (ops on global shapes under a fake
+mode) counts nothing.  The port's own transports (``launch/mesh.py``: the
+worker ring, the rank-order sums, the gathers) send nothing on meta
+tensors; their bytes are planned (``hlo_analysis.planned_collectives``).
+On the dry-run's CPU mesh DTensor turns a ``Shard`` to ``Shard``
+redistribution into an all-gather and a chunk (gloo has no all-to-all),
+where NCCL on the card runs an all-to-all of the shard: the traced
+all-gather bytes, and a peak that holds the gathered buffer, overstate
+what such a redistribution costs on the card.
 
 The kernels the trace reaches (B1r/B1a, B2r/B2a, B5, B5b) return outputs
 of their shapes on meta tensors and note their modeled work
@@ -39,15 +67,23 @@ are the full model's in both, so only the stack grows, and the result is
 exact wherever the depth is a whole number of cycles (a tail of layers
 past the last cycle counts as a fraction of one, as in the reference).
 The peak is extrapolated the same way and marked ``"extrapolated":
-true``.  Full depth is traced where the shallow traces predict it fits
-``--full-budget`` seconds; its time is ``trace_full_s`` (null where it
-was not traced, and then no full-depth number is given).
+true``; it is exact where every cycle's live set is alike — a
+tensor-parallel decode's first layer reads the replicated embedding and
+every later one a residual the MLP left ``Partial`` beside its
+all-reduced copy, so its extrapolated peak holds one (B_local, D) row
+more for each cycle past the second.  Full depth is traced where the
+shallow traces predict it fits ``--full-budget`` seconds; its time is
+``trace_full_s`` (null where it was not traced, and then no full-depth
+number is given).
 
 Each record keeps the reference's keys where they have a counterpart
 (``launch/hlo_analysis.py`` says what stands in for each term), and adds
-``fits`` (the peak within the card's 80 GiB), the bytes a device would
-hold under the tensor-parallel specs (``placed_bytes``) and the dtype
-traced.  The records go to ``build/dryrun/`` under the repo root.
+``layout``, ``fits`` (the peak within the card's 80 GiB), the bytes a
+device holds under the tensor-parallel specs (``placed_bytes``), the
+collectives planned and traced apart, and the dtype traced.  A pair the
+step of its layout cannot carry (e.g. the int8 wire on shards, ROADMAP
+item 15d) fails with its error.  The records go to ``build/dryrun/``
+under the repo root.
 """
 from __future__ import annotations
 
@@ -70,7 +106,7 @@ from . import sharding as SH
 from . import steps as ST
 from .hlo_analysis import (RooflineTerms, kernel_seconds, model_flops,
                            planned_collectives)
-from .mesh import (fake_process_group, local_worker_count,
+from .mesh import (WORKER_AXES, fake_process_group, local_worker_count,
                    make_production_mesh, n_worker_groups)
 
 ARTIFACT_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -95,18 +131,46 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def _tensors(tree) -> list:
+    return [t for t in _pt_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _propagation(tensors) -> bool:
+    """Ops on ``FakeTensor``s: DTensor's sharding propagation, which runs
+    an op at its GLOBAL shapes under a fake mode to learn the output's
+    (once per op and placements: it is cached) — no rank runs them."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
 class _AtenCounter(TorchDispatchMode):
     """Bytes each aten op reads and writes (each distinct input once, each
     output once) and the live bytes of every storage the step holds:
     storages are tracked from the op that made them (or :meth:`track`)
-    until freed; ``peak`` is the most alive at once."""
+    until freed; ``peak`` is the most alive at once.
+
+    What one rank runs, and nothing else: an op on DTensors is left to
+    DTensor (``NotImplemented``), which runs the rank's local ops — they
+    come back here and count once; its sharding propagation's ops at
+    global shapes (:func:`_propagation`) count nothing.  The
+    ``_c10d_functional`` collectives (and on CUDA ``_dtensor``'s
+    all-to-all) DTensor's redistributions reach go to
+    ``collectives`` (the reference's op name -> wire bytes,
+    ``hlo_analysis.traced_collective``) and ``n_collectives``, not to the
+    bytes; the ``c10d`` ops of the port's own transports
+    (``launch/mesh.py``, which send nothing on meta tensors) count neither:
+    their bytes are planned (``hlo_analysis.planned_collectives``)."""
 
     def __init__(self):
         super().__init__()
+        from torch.distributed.tensor import DTensor
         from torch.multiprocessing.reductions import StorageWeakRef
         self._weak = StorageWeakRef
+        self._placed = DTensor
         self.bytes = 0
         self.peak = 0
+        self.collectives: dict = {}
+        self.n_collectives = 0
         self._live: dict = {}
         self._total = 0
 
@@ -136,37 +200,92 @@ class _AtenCounter(TorchDispatchMode):
             self._add(t)
         self._update()
 
+    def _collective(self, func, outs) -> bool:
+        """Note a traced collective; False for the namespace's other ops."""
+        from .hlo_analysis import traced_collective
+        got = traced_collective(func.__name__.split(".")[0],
+                                sum(_nbytes(t) for t in outs))
+        if got is None:
+            return False
+        name, wire = got
+        self.collectives[name] = self.collectives.get(name, 0) + wire
+        self.n_collectives += 1
+        return True
+
+    def _hand_on(self, ins, outs) -> None:
+        """``wait_tensor`` and the async wrapper hand a collective's buffer
+        on: a real run's output wraps or aliases it (no new storage); a
+        meta run's wrapper makes an empty copy, which takes the buffer's
+        place in the live set (the card holds one buffer)."""
+        from torch.distributed._functional_collectives import \
+            AsyncCollectiveTensor
+        for i, o in zip(ins, outs):
+            if isinstance(o, AsyncCollectiveTensor):
+                continue
+            key = i.untyped_storage()._cdata
+            if o.untyped_storage()._cdata == key:
+                continue
+            ent = self._live.pop(key, None)
+            if ent is not None:
+                self._total -= ent[1]
+            self._add(o)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, self._placed) for t in types):
+            return NotImplemented
         out = func(*args, **kwargs)
-        outs = [t for t in _pt_leaves(out) if isinstance(t, torch.Tensor)]
-        if not _moves_no_bytes(func):
-            ins = {id(t): t for t in _pt_leaves((args, kwargs))
-                   if isinstance(t, torch.Tensor)}
-            self.bytes += (sum(_nbytes(t) for t in ins.values())
-                           + sum(_nbytes(t) for t in outs))
+        outs = _tensors(out)
+        ins = {id(t): t for t in _tensors((args, kwargs))}
+        if _propagation(outs + list(ins.values())):
+            return out
+        ns = func.namespace
+        if not (ns in ("_c10d_functional", "_dtensor")
+                and self._collective(func, outs)):
+            if ns == "_c10d_functional":
+                self._hand_on(list(ins.values()), outs)
+                self._update()
+                return out
+            if ns != "c10d" and not _moves_no_bytes(func):
+                self.bytes += (sum(_nbytes(t) for t in ins.values())
+                               + sum(_nbytes(t) for t in outs))
         for t in outs:
             self._add(t)
         self._update()
         return out
 
 
+def _flop_counter():
+    """``FlopCounterMode`` counting the rank's local ops only: it sees no
+    DTensor op (:class:`_AtenCounter`, entered after it, leaves those to
+    DTensor) and skips DTensor's sharding propagation."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    class LocalFlops(FlopCounterMode):
+        def _count_flops(self, func_packet, out, args, kwargs):
+            if _propagation(_tensors((out, args, kwargs))):
+                return out
+            return super()._count_flops(func_packet, out, args, kwargs)
+    return LocalFlops(display=False)
+
+
 class Counters:
     """The dry-run's counters around a block: aten FLOPs
-    (``FlopCounterMode``), aten bytes and the live-bytes peak
-    (:class:`_AtenCounter`, seeded with ``tensors``, the step's
-    arguments), and the modeled kernel calls (``kernels.record_modeled``).
-    After the block: ``flops``, ``bytes``, ``peak``, ``kernels`` (the
-    modeled calls), ``seconds``."""
+    (``FlopCounterMode``), aten bytes, the live-bytes peak and the traced
+    collectives (:class:`_AtenCounter`, seeded with ``tensors``, the
+    step's arguments — a DTensor's local shard), and the modeled kernel
+    calls (``kernels.record_modeled``), each of what one rank runs.  After
+    the block: ``flops``, ``bytes``, ``peak``, ``collectives``
+    ({op: wire bytes}), ``n_collectives``, ``kernels`` (the modeled
+    calls), ``seconds``."""
 
     def __init__(self, tensors=()):
         self._tensors = list(tensors)
 
     def __enter__(self):
-        from torch.utils.flop_counter import FlopCounterMode
         self._rec = K.record_modeled()
         self.kernels = self._rec.__enter__()
-        self._flop = FlopCounterMode(display=False)
+        self._flop = _flop_counter()
         self._flop.__enter__()
         self._aten = _AtenCounter()
         self._aten.__enter__()
@@ -183,6 +302,8 @@ class Counters:
         self.flops = int(self._flop.get_total_flops())
         self.bytes = self._aten.bytes
         self.peak = self._aten.peak
+        self.collectives = self._aten.collectives
+        self.n_collectives = self._aten.n_collectives
         return False
 
 
@@ -190,15 +311,15 @@ class Counters:
 # one rank's arguments
 # ---------------------------------------------------------------------------
 
-def _local_shape(struct, axis_sizes) -> tuple:
-    """The rank's slice of a Struct: each dim split over the worker axes
-    its spec names there (the port replicates over ``model``)."""
+def _local_shape(struct, axis_sizes, axes=None) -> tuple:
+    """The rank's shard of a Struct: each dim split over the mesh axes its
+    spec names there (``axes``: only those of these)."""
     out = []
     for i, dim in enumerate(struct.shape):
         ax = struct.spec[i] if i < len(struct.spec) else None
         names = () if ax is None else ((ax,) if isinstance(ax, str) else ax)
         n = math.prod(axis_sizes[a] for a in names
-                      if a in ("pod", "data"))
+                      if axes is None or a in axes)
         if dim % n:
             raise ValueError(f"dim {i} of {struct.shape} does not split "
                              f"over {names}")
@@ -244,35 +365,79 @@ def structs_of(obj) -> list:
 
 
 def arg_tensors(args) -> list:
-    """Every tensor of a step's arguments (:func:`_leaves`' order)."""
-    return _leaves(args, torch.Tensor)
+    """Every tensor of a step's arguments (:func:`_leaves`' order), a
+    DTensor's local shard in its place."""
+    return [t.to_local() if hasattr(t, "to_local") else t
+            for t in _leaves(args, torch.Tensor)]
 
 
-def rank_args(specs: dict, mesh, device="meta") -> dict:
-    """One rank's step arguments from global ``input_specs``: each Struct
-    cut to the rank's slice (:func:`_local_shape`) as an empty tensor on
-    ``device`` (``meta``: nothing allocated)."""
+# the arguments the tensor-parallel steps take placed (DTensor leaves on
+# the mesh's ``model`` dim); the rest (batches, tokens) are the rank's
+# plain slices
+PLACED_ARGS = ("params", "gossip", "cache")
+
+
+def _placed(struct, sizes, mm, device):
+    """A Struct as the tensor-parallel steps take it: a DTensor on the
+    ``model`` mesh ``mm``, ``Shard(d)`` where its spec names ``model`` at
+    d, its shape the Struct's with the data axes' dims cut (the worker
+    axis, a cache's batch), its local shard empty on ``device``."""
+    from torch.distributed.tensor import DTensor
+
+    from .tensor_parallel import model_only
+    shape = _local_shape(struct, sizes, WORKER_AXES)
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    local = torch.empty(_local_shape(struct, sizes), dtype=struct.dtype,
+                        device=device)
+    return DTensor.from_local(local, mm, SH.placements(
+        mm, model_only(struct.spec)), run_check=False,
+        shape=torch.Size(shape), stride=tuple(stride))
+
+
+def rank_args(specs: dict, mesh, device="meta",
+              layout="worker_split") -> dict:
+    """One rank's step arguments from global ``input_specs`` as empty
+    tensors on ``device`` (``meta``: nothing allocated).  ``layout``
+    (``steps.layout_of``): "worker_split" cuts each Struct over the worker
+    axes only (the packed engines replicate the rest over ``model``);
+    "tensor_parallel" cuts it over every mesh axis its spec names, the
+    :data:`PLACED_ARGS` wrapped as DTensors on the ``model`` dim
+    (:func:`_placed`)."""
     sizes = SH.axis_sizes_of(mesh)
-    return _map_args(lambda s: torch.empty(_local_shape(s, sizes),
-                                           dtype=s.dtype, device=device),
-                     specs)
+
+    def plain(s):
+        return torch.empty(_local_shape(s, sizes, WORKER_AXES),
+                           dtype=s.dtype, device=device)
+    if layout == "worker_split":
+        return _map_args(plain, specs)
+    from .tensor_parallel import model_mesh
+    mm = model_mesh(mesh)
+    return {k: _map_args((lambda s: _placed(s, sizes, mm, device))
+                         if k in PLACED_ARGS else plain, v)
+            for k, v in specs.items()}
 
 
 def trace_step(cfg, shape, mesh, gcfg, algo="asgd", engine="pytree",
-               workers=None, device="meta", fill=None, layers=None) -> dict:
+               workers=None, device="meta", fill=None, layers=None,
+               acfg=None) -> dict:
     """Trace one rank's step of ``cfg`` under :class:`Counters`: on meta
     tensors, or on ``device`` with ``fill(args)`` writing the arguments'
     values first (the tests run the same step on real CPU tensors);
     ``layers``: only the stack's first layers run, over the full model's
-    arguments (``steps.step_and_args``).  Returns the counts, and the
-    step's argument bytes and (shape, dtype) list."""
+    arguments (``steps.step_and_args``); ``acfg``: the pytree step's
+    ASGDConfig.  The pytree train step and the serve steps run
+    tensor-parallel on ``mesh`` (``steps.layout_of``).  Returns the
+    counts, and the step's argument bytes and (shape, dtype) list (of a
+    DTensor, its local shard)."""
     w_local = (local_worker_count(mesh, workers) if shape.kind == "train"
                else None)
     fn, specs = ST.step_and_args(cfg, shape, mesh, gcfg, algo=algo,
                                  engine=engine, dtype=TRACE_DTYPE,
                                  workers=workers, w_local=w_local,
-                                 layers=layers)
-    args = rank_args(specs, mesh, device)
+                                 layers=layers, acfg=acfg)
+    args = rank_args(specs, mesh, device, ST.layout_of(shape, engine))
     if fill is not None:
         fill(args)
     tensors = arg_tensors(args)
@@ -280,7 +445,8 @@ def trace_step(cfg, shape, mesh, gcfg, algo="asgd", engine="pytree",
         out = fn(*args.values())
         del out
     return {"flops": c.flops, "bytes": c.bytes, "peak": c.peak,
-            "kernels": list(c.kernels),
+            "kernels": list(c.kernels), "collectives": c.collectives,
+            "n_collectives": c.n_collectives,
             "arg_bytes": sum(_nbytes(t) for t in tensors),
             "arg_shapes": [(tuple(t.shape), t.dtype) for t in tensors],
             "seconds": c.seconds}
@@ -350,6 +516,7 @@ def run_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
     gcfg = gcfg or GossipConfig()
     if shape.kind != "train":
         engine = "pytree"   # serve steps have no gossip engine
+    layout = ST.layout_of(shape, engine)
 
     # shallow traces for the extrapolation
     c = len(cfg.pattern_cycle)
@@ -360,13 +527,19 @@ def run_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
     scale = cfg.n_layers / c
 
     shallow = {f: _extrap(r1[f], r2[f], scale)
-               for f in ("flops", "bytes", "peak", "arg_bytes")}
+               for f in ("flops", "bytes", "peak", "arg_bytes",
+                         "n_collectives")}
     shallow["kernels"] = _kernel_extrap(_kernel_summary(r1["kernels"]),
                                         _kernel_summary(r2["kernels"]),
                                         scale)
+    shallow["collectives"] = {
+        op: _extrap(r1["collectives"].get(op, 0),
+                    r2["collectives"].get(op, 0), scale)
+        for op in sorted(set(r1["collectives"]) | set(r2["collectives"]))}
     flops, aten_bytes, peak = (shallow["flops"], shallow["bytes"],
                                shallow["peak"])
     kernels, arg_bytes = shallow["kernels"], shallow["arg_bytes"]
+    traced, n_traced = shallow["collectives"], shallow["n_collectives"]
     extrapolated = True
 
     # full depth where the shallow traces say it fits the budget
@@ -379,35 +552,42 @@ def run_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
         flops, aten_bytes, peak = full["flops"], full["bytes"], full["peak"]
         kernels = _kernel_summary(full["kernels"])
         arg_bytes = full["arg_bytes"]
+        traced, n_traced = full["collectives"], full["n_collectives"]
         extrapolated = False
     k_bytes, k_seconds = kernel_seconds(
         [{"bytes": k["bytes"], "ops": k["ops"], "ops_dtype": k["ops_dtype"]}
          for k in kernels.values()])
 
-    # the collectives one rank's step sends, from the regions' row plan
+    # the collectives one rank's step sends: planned from the port's own
+    # transports (the ring, the rank-order sums, the metrics), and traced
+    # where DTensor redistributes
     specs = ST.input_specs(cfg, shape, mesh, gcfg, engine=engine,
                            dtype=TRACE_DTYPE)
     coll = {"total": 0.0, "by_op": {}, "count": 0}
     w_local = local_worker_count(mesh) if shape.kind == "train" else None
     if shape.kind == "train":
-        local = rank_args(specs, mesh)
+        local = rank_args(specs, mesh, layout=layout)
         pspec = None
         if engine != "pytree":
             pspec = dataclasses.replace(
                 ST.packed_spec_for(cfg, mesh, gcfg, TRACE_DTYPE),
                 n_workers=w_local)
-        psum = math.prod(SH.axis_sizes_of(mesh)[a]
-                         for a in gcfg.gate_psum_axes)
+        axes = ("model",) if layout == "tensor_parallel" \
+            else gcfg.gate_psum_axes
+        psum = math.prod(SH.axis_sizes_of(mesh)[a] for a in axes)
         coll = planned_collectives(
             algo=algo, engine=engine, gcfg=gcfg,
             n_shards=n_worker_groups(mesh), w_local=w_local, spec=pspec,
             params=local["params"] if engine == "pytree" else None,
-            psum_ranks=psum)
+            psum_ranks=psum, placed=layout == "tensor_parallel")
+    by_op = dict(coll["by_op"])
+    for op, wire in traced.items():
+        by_op[op] = by_op.get(op, 0.0) + wire
 
     terms = RooflineTerms(
         arch=arch_name, shape=shape_name, mesh=mesh_name, chips=chips,
         hlo_flops=flops, hlo_bytes=aten_bytes + k_bytes,
-        collective_bytes=coll["total"],
+        collective_bytes=math.fsum(by_op.values()),
         model_flops=model_flops(cfg, shape, chips=chips),
         dtype=str(TRACE_DTYPE).removeprefix("torch."),
         kernel_compute_s=k_seconds)
@@ -415,12 +595,15 @@ def run_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
     rec.update({
         "algo": algo,
         "engine": engine,
+        "layout": layout,
         "ranks": chips,
         "w_local": w_local,
         "aten_bytes": aten_bytes,
         "kernels": kernels,
-        "collective_by_op": coll["by_op"],
-        "collective_op_count": coll["count"],
+        "collective_by_op": by_op,
+        "collective_op_count": coll["count"] + round(n_traced),
+        "collective_planned": coll["by_op"],
+        "collective_traced": traced,
         "memory": {
             "argument_bytes": arg_bytes,
             "peak_bytes": peak,
@@ -436,7 +619,7 @@ def run_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
     if verbose:
         full_txt = "-" if t_full is None else f"{t_full:.1f}s"
         print(f"[dryrun] {arch_name} x {shape_name} x {mesh_name} "
-              f"({algo}/{engine}): OK full={full_txt} "
+              f"({algo}/{engine}, {layout}): OK full={full_txt} "
               f"shallow={t_shallow:.1f}s dominant={rec['dominant']} "
               f"useful={rec['useful_ratio']:.3f} "
               f"peak={peak / 2 ** 30:.2f}GiB"

@@ -17,12 +17,15 @@ collective term = bytes one rank sends / NVLink bandwidth (one direction)
   unfused — an upper bound, not XLA's post-fusion "bytes accessed" —
   plus the modeled bytes of each hand-written kernel's launch (its bound's
   bytes, PERF.md §6);
-* collective bytes: not traced but planned (:func:`planned_collectives`)
-  from the port's own regions (``launch/mesh.py``): the partition's rows
-  a ring send moves, the gate terms a psum gathers, the ring all-reduce
-  of the sync baseline — the counterpart of parsing the HLO's
-  collectives.  A test holds the plan to the bytes a real gloo run of the
-  regions counts.
+* collective bytes: traced where DTensor redistributes (the
+  ``_c10d_functional`` ops the trace reaches, under the reference's op
+  names by :data:`TRACED_COLLECTIVES`, the buffer their output), and
+  planned (:func:`planned_collectives`) where the port's own transports
+  send (``launch/mesh.py``, which on meta tensors send nothing): the
+  partition's rows a ring send moves, the gate terms a psum gathers, the
+  sync baseline's sum, the metrics gathered over the worker group — the
+  counterpart of parsing the HLO's collectives.  A test holds the plan to
+  the bytes a real gloo run of the regions counts.
 
 The constants are the card's (NVIDIA H100 80GB HBM3, 700 W, as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them; dense rates from
@@ -42,12 +45,42 @@ PEAK_FLOPS = {"float32": 67e12,     # f32 outside the tensor cores
 HBM_BW = 3.35e12                    # bytes/s
 NVLINK_BW = 450e9                   # bytes/s, one direction
 
-# wire bytes one rank sends, as a multiple of the op's buffer
+# wire bytes one rank sends, as a multiple of the op's buffer (the
+# reference's factors; the buffer is the op's output, as the reference
+# reads it from the HLO)
 _WIRE_FACTOR = {
     "ppermute": 1.0,        # the partition's rows, once
-    "psum": 1.0,            # all_gather of the gate terms: (n - 1) buffers
+    "psum": 1.0,            # rank-order sum: an all_gather, (n - 1) buffers
     "all-reduce": 2.0,      # ring: reduce-scatter + all-gather
+    "all-gather": 1.0,
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
 }
+
+# the collectives a trace reaches (DTensor's redistributions:
+# ``_c10d_functional`` ops, and ``_dtensor``'s all-to-all on a CUDA mesh)
+# under the reference's HLO op names
+TRACED_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",     # _dtensor's, on CUDA meshes
+}
+
+
+def traced_collective(op_name: str, out_bytes: int):
+    """(reference op name, wire bytes one rank sends) of a traced
+    collective op (:data:`TRACED_COLLECTIVES`) whose outputs hold
+    ``out_bytes``; None for any other op (``wait_tensor``, the async
+    wrappers)."""
+    name = TRACED_COLLECTIVES.get(op_name)
+    if name is None:
+        return None
+    return name, _WIRE_FACTOR[name] * out_bytes
 
 
 @dataclass
@@ -164,10 +197,16 @@ def ppermute_bytes(spec, gcfg, n_shards: int, w_local: int, shift_idx: int,
     return moved_rows(gcfg.shifts[shift_idx], n_shards, w_local) * per
 
 
+def _local(x):
+    """A DTensor's local shard; a plain tensor itself."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
 def _leaves_bytes(params, gcfg, block_idx: int, w_local: int) -> int:
     """One worker's bytes of the pytree engine's exchange
     (``core.gossip exchange_leaves``: the leaves of group ``block_idx`` in
-    their dtype; 'rows' mode: every leaf's 1/p block)."""
+    their dtype; 'rows' mode: every leaf's 1/p block): of a placed tree,
+    the rank's shards of the groups its leaves' global shapes give."""
     from ..core.gossip import _block_size, leaf_groups
     from ..core.tree import flatten_sorted
     leaves = flatten_sorted(params)[0]
@@ -175,23 +214,30 @@ def _leaves_bytes(params, gcfg, block_idx: int, w_local: int) -> int:
     if gcfg.partial_mode == "rows":
         n = sum((x.numel() // max(x.shape[1], 1)
                  * _block_size(x.shape[1], p) if x.ndim >= 2
-                 else x.numel()) * x.element_size() for x in leaves)
+                 else x.numel()) * x.element_size()
+                for x in map(_local, leaves))
     else:
         groups = flatten_sorted(leaf_groups(params, p))[0]
-        n = sum(x.numel() * x.element_size()
+        n = sum(_local(x).numel() * x.element_size()
                 for x, g in zip(leaves, groups) if g == block_idx)
     return n // w_local
 
 
 def planned_collectives(*, algo: str, engine: str, gcfg, n_shards: int,
                         w_local: int, spec=None, params=None,
-                        psum_ranks: int = 1) -> dict:
+                        psum_ranks: int = 1, placed: bool = False) -> dict:
     """Bytes one rank sends in one train step under the port's regions,
     by op, the draws' mean over every (shift, partition) pair (each is
     drawn uniformly).  ``spec``: the packed engines' WPackSpec; ``params``:
     one rank's (W_local, ...) tree for the pytree engine and 'sync';
     ``psum_ranks``: ranks of ``gcfg.gate_psum_axes`` (1: no psum).
-    Returns {"total", "by_op", "count"} as the reference's parse does."""
+    ``placed``: the tensor-parallel step (``launch/tensor_parallel.py``):
+    ``params`` DTensor leaves whose shards travel, the gate terms summed
+    over ``psum_ranks`` (``model``) ranks, 'sync' a rank-order sum of one
+    worker's shards over the worker group, and the step's metrics — the
+    losses and, for 'asgd', the gates, (W_local,) f32 each — gathered
+    over it.  Returns {"total", "by_op", "count"} as the reference's parse
+    does."""
     by_op: dict = {}
     count = 0
     if algo == "sync":
@@ -200,9 +246,13 @@ def planned_collectives(*, algo: str, engine: str, gcfg, n_shards: int,
             grad = w_local * spec.rows * LANE * 4
         else:
             from ..core.tree import tree_leaves
-            grad = sum(x.numel() * x.element_size()
+            grad = sum(_local(x).numel() * x.element_size()
                        for x in tree_leaves(params))
-        if n_shards > 1:
+        if n_shards > 1 and placed:
+            by_op["psum"] = _WIRE_FACTOR["psum"] * (n_shards - 1) * (
+                grad // w_local)
+            count = 1
+        elif n_shards > 1:
             by_op["all-reduce"] = _WIRE_FACTOR["all-reduce"] * grad
             count = 1
     elif algo == "asgd":
@@ -217,11 +267,16 @@ def planned_collectives(*, algo: str, engine: str, gcfg, n_shards: int,
                     for s, b in pairs]
         by_op["ppermute"] = _WIRE_FACTOR["ppermute"] * sum(sent) / len(pairs)
         count = 1
-        if psum_ranks > 1 and engine != "pytree":
+        if psum_ranks > 1 and (engine != "pytree" or placed):
             gates = w_local * 3 * 4               # (W_local, 1, 3) f32
             by_op["psum"] = _WIRE_FACTOR["psum"] * (psum_ranks - 1) * gates
             count += 1
     elif algo != "silent":
         raise ValueError(f"unknown algo {algo!r}")
+    if placed and n_shards > 1:
+        metrics = (2 if algo == "asgd" else 1) * w_local * 4
+        by_op["all-gather"] = (_WIRE_FACTOR["all-gather"] * (n_shards - 1)
+                               * metrics)
+        count += 1
     return {"total": math.fsum(by_op.values()), "by_op": by_op,
             "count": count}

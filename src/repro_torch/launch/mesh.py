@@ -22,6 +22,10 @@ resident kernel pair B1r/B1a on the local slice.
 Transport: NCCL for CUDA tensors (one GPU per rank), gloo for CPU tensors.
 A tensor on a group of the other kind raises; nothing is staged through
 the host.  Rendezvous is a file the caller names (:func:`init_ranks`).
+``meta`` tensors (the dry-run's trace of one rank, ``launch/dryrun.py``)
+travel nowhere: the transports make the outputs of their shapes, dtypes
+and device, by the same ops as for a real tensor, and send nothing (the
+dry-run plans those bytes, ``hlo_analysis.planned_collectives``).
 
 Every rank must call a region with the same host ints ``shift_idx``,
 ``block_idx``, ``step`` and ``buf_idx``/``ext_idx``: they select the
@@ -181,9 +185,17 @@ def _worker_group(mesh):
     return _axes_group(mesh, wa)
 
 
+def _travels(x) -> bool:
+    """False for a ``meta`` tensor: it has no data to send."""
+    return x.device.type != "meta"
+
+
 def _check_transport(x, group) -> None:
     """CUDA tensors go over NCCL and CPU tensors over gloo; anything else
-    raises (no silent staging through the host)."""
+    raises (no silent staging through the host) but a ``meta`` tensor,
+    which travels nowhere."""
+    if not _travels(x):
+        return
     backend = str(dist.get_backend(group))
     want = {"cuda": "nccl", "cpu": "gloo"}.get(x.device.type)
     if want is None or want not in backend:
@@ -208,7 +220,8 @@ def gather_workers(x, mesh):
     x = x.contiguous()
     _check_transport(x, group)
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
+    if _travels(x):
+        dist.all_gather(parts, x, group=group)
     return torch.cat(parts)
 
 
@@ -221,7 +234,8 @@ def psum_rank_order(x, mesh, axes):
     x = x.contiguous()
     _check_transport(x, group)
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
+    if _travels(x):
+        dist.all_gather(parts, x, group=group)
     out = parts[0]
     for p in parts[1:]:
         out = out + p
@@ -279,7 +293,7 @@ def _ppermute(parts, group, n_shards: int, tally=None):
         if tally is not None:
             tally.bytes_sent += x.numel() * x.element_size()
         out.append(recv)
-    if ops:
+    if ops and _travels(ops[0].tensor):
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return out

@@ -32,6 +32,7 @@ decode position — are host ints here, as the port's steps take them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -153,7 +154,7 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
                     pack_spec=pack_spec, pipelined=pipelined,
                     lr_schedule=lr_schedule)
         return TensorParallelStep(cfg, mesh, gcfg=gcfg, acfg=acfg,
-                                  remat=remat)
+                                  remat=remat, algo=algo)
 
     def direction(params, grads, opt_state):
         """(dw, new_opt_state): w - eps*dw is the inner-optimizer step
@@ -488,36 +489,51 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
             "cache": cache_struct(cfg, shape, mesh, dtype)}
 
 
+def layout_of(shape: ShapeConfig, engine: str = "pytree") -> str:
+    """How a step's arguments lie on a mesh: "tensor_parallel" (the pytree
+    train step and every serve step: each leaf a rank's shard over
+    ``model`` as ``launch/sharding.py`` lays it out, the worker axis or the
+    batch over the data axes) or "worker_split" (the packed and pipelined
+    engines: the worker axis over the data axes, the rest whole, as the
+    reference's)."""
+    if shape.kind == "train" and engine != "pytree":
+        return "worker_split"
+    return "tensor_parallel"
+
+
 def step_and_args(cfg: ModelConfig, shape: ShapeConfig, mesh,
                   gcfg: GossipConfig | None = None, algo="asgd",
                   engine: str = "pytree", dtype=PARAM_DTYPE, workers=None,
-                  w_local=None, layers=None):
-    """(step, input_specs): the port's step for the shape and engine —
-    make_train_step (with the struct-derived pack spec for 'packed' /
-    'pipelined'), make_prefill_step or make_decode_step — and its
-    arguments as :func:`input_specs` gives them, in the step's order.
-    ``w_local``: build the train step for one rank's slice of that many
-    workers (its pack spec's worker count), as the dry-run traces it.
-    ``layers``: the step runs only the first ``layers`` layers of the
-    stack (whole cycles) over the FULL model's arguments — the dry-run's
-    shallow traces, whose arguments, gossip round and gradient buffers
-    are then the full model's."""
+                  w_local=None, layers=None, acfg: ASGDConfig | None = None):
+    """(step, input_specs): the port's step for the shape and engine on
+    ``mesh`` — the tensor-parallel ``make_train_step(mesh=)`` for the
+    pytree engine (``acfg``: its ASGDConfig, default the reference's
+    plain blend at eps 0.01), ``make_prefill_step(mesh=)`` or
+    ``make_decode_step(mesh=)`` (taking ``rows=``, the whole batch's), or
+    the worker-split ``make_train_step`` with the struct-derived pack spec
+    for 'packed' / 'pipelined' (:func:`layout_of`) — and its arguments as
+    :func:`input_specs` gives them, in the step's order.  ``w_local``:
+    build the packed step for one rank's slice of that many workers (its
+    pack spec's worker count), as the dry-run traces it.  ``layers``: the
+    step runs only the first ``layers`` layers of the stack (whole cycles)
+    over the FULL model's arguments — the dry-run's shallow traces, whose
+    arguments, gossip round and gradient buffers are then the full
+    model's."""
     specs = input_specs(cfg, shape, mesh, gcfg, engine=engine, dtype=dtype,
                         workers=workers)
     full_cfg = cfg
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     if shape.kind == "train":
-        pack_spec = None
-        if engine != "pytree":
-            pack_spec = packed_spec_for(full_cfg, mesh,
-                                        gcfg or GossipConfig(), dtype,
-                                        workers)
-            if w_local is not None:
-                pack_spec = dataclasses.replace(pack_spec, n_workers=w_local)
+        if engine == "pytree":
+            return make_train_step(cfg, algo=algo, gcfg=gcfg, acfg=acfg,
+                                   mesh=mesh), specs
+        pack_spec = packed_spec_for(full_cfg, mesh, gcfg or GossipConfig(),
+                                    dtype, workers)
+        if w_local is not None:
+            pack_spec = dataclasses.replace(pack_spec, n_workers=w_local)
         return make_train_step(cfg, pack_spec=pack_spec, algo=algo,
-                               gcfg=gcfg,
+                               gcfg=gcfg, acfg=acfg,
                                pipelined=engine == "pipelined"), specs
-    if shape.kind == "prefill":
-        return make_prefill_step(cfg), specs
-    return make_decode_step(cfg), specs
+    make = make_prefill_step if shape.kind == "prefill" else make_decode_step
+    return functools.partial(make(cfg, mesh), rows=shape.global_batch), specs

@@ -38,7 +38,18 @@ make_train_step(..., mesh=)``):
   replicated leaf is whole on every ``model`` rank, so its rows enter
   B2r's mask on ``model`` rank 0 only and are counted once; B2a blends
   under the round's group mask with the one set of gates, so every
-  replica of a replicated leaf is written alike.
+  replica of a replicated leaf is written alike.  The plain blend
+  (``ASGDConfig(use_fused=False)``, the reference's default) is the same
+  round in plain torch (``core/gossip.py _per_worker_reduce3``,
+  ``gate_from_terms``, ``blend_group``): each worker's three eq.-4 terms
+  summed over the rank's shards (a replicated leaf's on ``model`` rank 0
+  only), then over ``model`` once in rank order, and every leaf of the
+  group blended under the one gate.
+* algos 'silent' (the local step) and 'sync' (each worker steps with the
+  mean of all W workers' steps: a rank's local shards summed over its
+  workers, then over the worker group in rank order, leaf by leaf), and
+  ``ASGDConfig(silent=True)`` (the local step, the round counter
+  bumped, the gates shut), as ``core/gossip.py``'s.
 
 Serving (:func:`make_serve_steps`, built by ``launch/steps.py
 make_prefill_step`` / ``make_decode_step(mesh=)``; ``launch/serve.py
@@ -68,9 +79,10 @@ layers ('G', 'L' windows, 'E' encoder layers), Mamba-2 SSD ('S') and
 RG-LRU ('R') layers, dense MLPs (GLU or plain with biases) and MoE FFNs,
 RMSNorm or LayerNorm, RoPE or sinusoidal positions, softcaps, scaled
 embeddings, a vision prefix of patches or an audio encoder with
-cross-attention (all ten archs); algo 'asgd', inner 'sgd', 'leaves'
-mode, a round every step, the blend through B2r/B2a
-(``ASGDConfig(use_fused=True)``) and wire None or "dtype".  Every other
+cross-attention (all ten archs); algos 'asgd', 'silent' and 'sync',
+inner 'sgd', 'leaves' mode, a round every step, the blend through
+B2r/B2a (``ASGDConfig(use_fused=True)``) or in plain torch,
+``ASGDConfig(silent=True)``, and wire None or "dtype".  Every other
 option raises NotImplementedError naming its ROADMAP item.  An 'S' layer
 runs kernel B5 (B5b under autograd) on each rank's own heads, an 'R'
 layer its doubling scan on each rank's channels (models/ssm.py
@@ -100,13 +112,15 @@ import functools
 import torch
 import torch.distributed as dist
 
-from ..core.gossip import (GossipState, _fused_blend, leaf_groups,
+from ..core.gossip import (GossipState, _fused_blend, _per_worker_reduce3,
+                           blend_group, leaf_groups, local_sgd_apply,
                            resolved_wire_format, staleness_valid)
+from ..core.parzen import gate_from_terms
 from ..core.tree import flatten_sorted, tree_map, unflatten
 from . import sharding as SH
 from .mesh import (_roll_workers_manual, _worker_group, data_axes,
                    gather_workers, mesh_context, n_worker_groups,
-                   shard_workers)
+                   psum_rank_order, shard_workers)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -119,8 +133,9 @@ def check_scope(cfg, *, algo, inner, gcfg, acfg, pack_spec=None,
                 pipelined=False, lr_schedule=None) -> None:
     """Raise NotImplementedError for what the tensor-parallel step does not
     carry, naming the ROADMAP item that queues it: every model the port
-    carries is (``models.blocks.check_supported``), not every option of
-    the step."""
+    carries is (``models.blocks.check_supported``), and algos 'asgd',
+    'silent' and 'sync', the fused and the plain blend and
+    ``ASGDConfig(silent=True)``; not every option of the step."""
     from ..models.blocks import check_supported
     check_supported(cfg)
     if pack_spec is not None or pipelined or lr_schedule is not None:
@@ -130,13 +145,9 @@ def check_scope(cfg, *, algo, inner, gcfg, acfg, pack_spec=None,
             "launch/mesh.py's regions")
     if resolved_wire_format(gcfg) == "int8":
         raise _not_ported("the int8 wire on shards", "15d")
-    for what, bad in ((f"algo {algo!r}", algo != "asgd"),
-                      (f"inner {inner!r}", inner != "sgd"),
+    for what, bad in ((f"inner {inner!r}", inner != "sgd"),
                       (f"partial_mode {gcfg.partial_mode!r}",
                        gcfg.partial_mode != "leaves"),
-                      ("the plain blend (ASGDConfig(use_fused=False))",
-                       not acfg.use_fused),
-                      ("ASGDConfig(silent=True)", acfg.silent),
                       (f"gossip_every {gcfg.gossip_every}",
                        gcfg.gossip_every != 1)):
         if bad:
@@ -205,9 +216,9 @@ def place_serve_params(mesh, tree):
                                for x, s in zip(leaves, specs)])
 
 
-def _model_only(spec) -> tuple:
-    """A spec's ``model`` entries, the data axes' dropped (the batch is
-    sliced by hand, not placed)."""
+def model_only(spec) -> tuple:
+    """A spec's ``model`` entries, the data axes' dropped (the worker dim
+    and the batch are sliced by hand, not placed)."""
     return tuple(a if a == "model" else None for a in spec)
 
 
@@ -255,7 +266,7 @@ def place_cache(mesh, cache, cfg):
         if spec[b] is not None:
             x = serve_slice(mesh, x, b)
         out.append(distribute_tensor(x.clone(), mm,
-                                     SH.placements(mm, _model_only(spec))))
+                                     SH.placements(mm, model_only(spec))))
     return unflatten(flatten_sorted(cache)[1], out)
 
 
@@ -273,7 +284,7 @@ def _place_prefill_cache(mm, cache, cfg):
     sizes = {"model": mm.size()}
 
     def place(path, x):
-        x = x.redistribute(mm, SH.placements(mm, _model_only(
+        x = x.redistribute(mm, SH.placements(mm, model_only(
             SH.cache_pspec(path, x, cfg, axis_sizes=sizes))))
         return x.to(torch.bfloat16) if path[-1] in _KV_LEAVES else x
     return SH.tree_map_with_path(place, cache)
@@ -410,12 +421,33 @@ def _exchange_shards(local, gids, shift: int, block_idx: int, gcfg, group,
     return out
 
 
+def _plain_blend(local, grads, ext, gids, reduce_gids, ext_idx, gate_scale,
+                 acfg, mesh):
+    """``core/gossip.py``'s plain blend ('leaves' mode, ``use_fused=False``)
+    on the rank's local shards: each worker's three eq.-4 terms summed
+    over its shards (``_per_worker_reduce3``; ``reduce_gids`` leaves a
+    replicated leaf to ``model`` rank 0), then over ``model`` once, in rank
+    order; the gate from the sums (``gate_from_terms``), and every leaf of
+    group ``ext_idx`` blended under it (``blend_group``), the rest
+    stepped.
+    Returns (new local shards, gate (W_local,))."""
+    terms = torch.stack(_per_worker_reduce3(local, grads, ext, reduce_gids,
+                                            ext_idx), dim=-1)
+    terms = psum_rank_order(terms, mesh, ("model",))
+    gate = gate_from_terms(terms[:, 0], terms[:, 1], terms[:, 2], acfg.eps,
+                           use_parzen=acfg.use_parzen)
+    if gate_scale is not None:
+        gate = gate * gate_scale
+    return blend_group(local, grads, ext, gids, ext_idx, gate, acfg), gate
+
+
 def tp_gossip_apply(params, grads, state: GossipState, shift_idx: int,
                     block_idx: int, gcfg, acfg, *, mesh, tally=None):
-    """One ASGD round of the pytree engine ('leaves' mode, fused blend) on
-    placed trees: ``params``, ``grads`` and ``state.buf`` DTensor trees
-    with the same placements.  ``tally``: an object whose ``bytes_sent``
-    counts what this rank sends.
+    """One ASGD round of the pytree engine ('leaves' mode, the fused blend
+    through B2r/B2a or, ``use_fused=False``, the plain one) on placed
+    trees: ``params``, ``grads`` and ``state.buf`` DTensor trees with the
+    same placements.  ``tally``: an object whose ``bytes_sent`` counts
+    what this rank sends.
 
     Returns (new_params, new_state, {"gate": (W_local,)}) — every rank of a
     worker coordinate gets the same."""
@@ -440,17 +472,49 @@ def tp_gossip_apply(params, grads, state: GossipState, shift_idx: int,
     if mesh.get_local_rank("model") > 0:
         reduce_gids = tree([-1 if _replicated(x) else g
                             for x, g in zip(leaves, gids)])
-    new, gate = _fused_blend(
-        tree(local), tree([g.to_local() for g in flatten_sorted(grads)[0]]),
-        tree(ext), dataclasses.replace(gcfg, gate_psum_axes=("model",)),
-        acfg, tree(gids), ext_idx, gate_scale=valid, mesh=mesh,
-        reduce_groups=reduce_gids)
+    local_grads = tree([g.to_local() for g in flatten_sorted(grads)[0]])
+    if acfg.use_fused:
+        new, gate = _fused_blend(
+            tree(local), local_grads, tree(ext),
+            dataclasses.replace(gcfg, gate_psum_axes=("model",)), acfg,
+            tree(gids), ext_idx, gate_scale=valid, mesh=mesh,
+            reduce_groups=reduce_gids)
+    else:
+        new, gate = _plain_blend(
+            tree(local), local_grads, tree(ext), tree(gids),
+            tree(gids) if reduce_gids is None else reduce_gids, ext_idx,
+            valid, acfg, mesh)
     new_state = GossipState(
         buf=tree([_rewrap(x, t) for x, t in zip(leaves, sent)]),
         buf_idx=block_idx, step=state.step + 1)
     return (tree([_rewrap(x, t) for x, t in
                   zip(leaves, flatten_sorted(new)[0])]),
             new_state, {"gate": gate})
+
+
+def _local_steps(params, grads, eps):
+    """``core/gossip.py local_sgd_apply`` on the local shards: w − eps·g,
+    nothing exchanged."""
+    return tree_map(lambda x, g: _rewrap(x, local_sgd_apply(
+        x.to_local(), g.to_local(), eps)), params, grads)
+
+
+def tp_sync_apply(params, grads, eps, *, mesh):
+    """``core/gossip.py sync_dp_apply`` (algo 'sync') on placed trees: each
+    worker steps with the mean of all W workers' steps.  Leaf by leaf, a
+    rank's (W_local, ...) local shards are summed over its workers, then
+    over the worker group in rank order (``psum_rank_order``), and divided
+    by W; each rank holds one leaf's sum at a time."""
+    axes = data_axes(mesh)
+    n = flatten_sorted(grads)[0][0].to_local().shape[0] * \
+        n_worker_groups(mesh)
+
+    def step(x, g):
+        local, glocal = x.to_local(), g.to_local()
+        total = psum_rank_order(glocal.sum(dim=0, keepdim=True), mesh, axes)
+        mean = (total / n).expand_as(glocal).to(local.dtype)
+        return _rewrap(x, local - eps * mean)
+    return tree_map(step, params, grads)
 
 
 # ---------------------------------------------------------------------------
@@ -470,15 +534,21 @@ class TensorParallelStep:
     the rank's worker slice ``{"tokens": (W_local, B, S)}``, with
     ``"frames"`` (W_local, B, S_enc, D) or ``"patches"`` (W_local, B, P,
     D) for a frontend (each the same on every ``model`` rank of a worker
-    coordinate), the draws host ints, the same on every rank.  metrics: "loss" the mean over all W workers, and
-    "gate" (W,) and "n_good" gathered over the worker axes, so every rank
-    reports the whole ensemble's.  ``bytes_sent``: what this rank
-    has put on the wire.  Built by ``launch/steps.py make_train_step``
-    after :func:`check_scope`."""
+    coordinate), the draws host ints, the same on every rank.  ``algo``
+    'asgd' runs the gossip round (:func:`tp_gossip_apply`; under
+    ``ASGDConfig(silent=True)`` the local step alone, the round's
+    counter bumped and its gates shut, as ``core.gossip``'s silent
+    round), 'silent' the local step and 'sync' the worker mean
+    (:func:`tp_sync_apply`), the gossip state untouched.  metrics: "loss"
+    the mean over all W workers, and for 'asgd' "gate" (W,) and "n_good"
+    gathered over the worker axes, so every rank reports the whole
+    ensemble's.  ``bytes_sent``: what this rank has put on the wire.
+    Built by ``launch/steps.py make_train_step`` after
+    :func:`check_scope`."""
 
-    def __init__(self, cfg, mesh, *, gcfg, acfg, remat):
+    def __init__(self, cfg, mesh, *, gcfg, acfg, remat, algo="asgd"):
         self.cfg, self.mesh, self.remat = cfg, mesh, remat
-        self.gcfg, self.acfg = gcfg, acfg
+        self.gcfg, self.acfg, self.algo = gcfg, acfg, algo
         self.mm = model_mesh(mesh)
         self._tally = _Tally()
 
@@ -499,16 +569,38 @@ class TensorParallelStep:
             lambda g, p: g.redistribute(self.mm, p.placements), grads,
             params)
 
+    def _round(self, params, grads, gossip, shift_idx, block_idx):
+        """(new params, new gossip state, this rank's (W_local,) gates or
+        None where the algo has none)."""
+        eps = self.acfg.eps
+        if self.algo == "sync":
+            return (tp_sync_apply(params, grads, eps, mesh=self.mesh),
+                    gossip, None)
+        if self.algo == "silent":
+            return _local_steps(params, grads, eps), gossip, None
+        if self.acfg.silent:
+            leaf = flatten_sorted(params)[0][0].to_local()
+            return (_local_steps(params, grads, eps),
+                    dataclasses.replace(gossip, step=gossip.step + 1),
+                    torch.zeros((leaf.shape[0],), dtype=torch.float32,
+                                device=leaf.device))
+        new_params, new_gossip, gm = tp_gossip_apply(
+            params, grads, gossip, shift_idx, block_idx, self.gcfg,
+            self.acfg, mesh=self.mesh, tally=self._tally)
+        return new_params, new_gossip, gm["gate"]
+
     def __call__(self, params, gossip, opt_state, batch, shift_idx,
                  block_idx, live=None):
         if live is not None:
             raise _not_ported("elastic live=", "15f")
         losses, grads = self.loss_and_grad(params, batch)
         with torch.no_grad():
-            new_params, new_gossip, gm = tp_gossip_apply(
-                params, grads, gossip, shift_idx, block_idx, self.gcfg,
-                self.acfg, mesh=self.mesh, tally=self._tally)
-            gate = gather_workers(gm["gate"], self.mesh)
+            new_params, new_gossip, gate = self._round(
+                params, grads, gossip, shift_idx, block_idx)
+            metrics = {}
+            if gate is not None:
+                gate = gather_workers(gate, self.mesh)
+                metrics = {"gate": gate, "n_good": gate.sum()}
             metrics = {"loss": gather_workers(losses, self.mesh).mean(),
-                       "gate": gate, "n_good": gate.sum()}
+                       **metrics}
         return new_params, new_gossip, opt_state, metrics

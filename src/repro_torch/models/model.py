@@ -359,8 +359,6 @@ def forward_w(cfg: ModelConfig, params, batch, *, remat=True,
             aux = aux + a
     _, norm = make_norm(cfg.norm_type)
     x = norm(params["final_norm"], x)
-    if cfg.seq_parallel:
-        x = gathered(x)          # the matmul boundary (blocks._segment_in)
     logits = unembed(cfg, params, x)
     if not return_cache:
         return logits, aux
@@ -371,6 +369,12 @@ def forward_w(cfg: ModelConfig, params, batch, *, remat=True,
 
 
 def unembed(cfg: ModelConfig, params, x):
+    """Logits (W, B, S, V) of the final hidden state x.  Under a mesh x is
+    gathered whole first (``models/hints.py gathered``: the
+    sequence-parallel stream's matmul boundary, or a residual left
+    ``Partial`` or sharded over d_model), so a vocab-sharded table gives
+    vocab-sharded logits, not whole ones summed over ``model``."""
+    x = gathered(x)
     if cfg.tie_embeddings:
         logits = torch.einsum("wbsd,wvd->wbsv", x, params["embed"])
     else:
@@ -379,10 +383,27 @@ def unembed(cfg: ModelConfig, params, x):
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab:
         # mask pad columns so softmax never sees them
-        col = torch.arange(cfg.padded_vocab, device=logits.device)
-        logits = torch.where(col < cfg.vocab, logits,
+        logits = torch.where(_columns(logits) < cfg.vocab, logits,
                              torch.full((), -1e30, device=logits.device))
     return logits
+
+
+def _columns(logits):
+    """The column numbers of ``logits``' last dim, placed as it is: where
+    a DTensor's vocab is sharded over its 1-D mesh, each rank's own
+    columns (``Shard(0)``), so the pad mask stays on the rank's vocab
+    shard (with a whole column vector DTensor's sharding of the mask
+    made a mamba2 train_4k cycle cost a rank 5.3x the FLOPs)."""
+    from torch.distributed.tensor import DTensor, Shard
+    n = logits.shape[-1]
+    if (isinstance(logits, DTensor)
+            and logits.placements == (Shard(logits.ndim - 1),)):
+        mesh = logits.device_mesh
+        k = n // mesh.size()
+        first = mesh.get_local_rank() * k
+        local = torch.arange(first, first + k, device=logits.device)
+        return DTensor.from_local(local, mesh, (Shard(0),), run_check=False)
+    return torch.arange(n, device=logits.device)
 
 
 def loss_fn_w(cfg: ModelConfig, params, batch, *, remat=True):

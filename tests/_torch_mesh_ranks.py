@@ -220,8 +220,11 @@ class Rank:
                 device="cpu")),
             "indivisible_raises": raises(
                 lambda: MM.local_worker_count(mesh, 6)),
-            "meta_raises": raises(lambda: MM.gather_workers(
-                torch.zeros(2, device="meta"), mesh)),
+            # a meta tensor (the dry-run's trace) travels nowhere: the
+            # gather returns the shape it would have
+            "meta_gathers": int(tuple(MM.gather_workers(
+                torch.zeros(2, device="meta"), mesh).shape)
+                == (2 * MM.n_worker_groups(mesh),)),
             "unknown_dim_raises": raises(lambda: MM.psum_rank_order(
                 torch.zeros(2), mesh, "expert")),
             "no_data_axes_raises": raises(lambda: MM.shard_map_workers(

@@ -32,14 +32,26 @@ magnitude; serving's logits within 1e-5 of the largest, tokens equal,
 cache placements, and a decode step's collectives alike at two lengths
 and none reading the cache.
 
+The step options the dry-run's step takes: tests/test_torch_tensor_
+parallel_blend.py's cases (tests/_torch_tp_blend_ranks.py: the plain
+blend, algos sync and silent, the silent flag) on the smollm training
+case's inputs, held as training above.  The dry-run's placed trace:
+tests/test_torch_dryrun_tp.py's cases (tests/_torch_tp_dryrun_ranks.py),
+ranks 0 and 1 traced on meta here against the gloo ranks' real run,
+every count equal but the peak, the real one within 1% above (that
+test's bound).
+
 Prints a line a case; exits 1 if a rank fails or a case misses.
 """
+import json
 import pathlib
 import sys
 
 import numpy as np
 import torch
 
+import _torch_tp_blend_ranks as B
+import _torch_tp_dryrun_ranks as DR
 import _torch_tp_moe_ranks as M
 import _torch_tp_ranks as R
 import _torch_tp_serve_ranks as S
@@ -89,12 +101,13 @@ def case_inputs(arch, seed):
     return out, batches
 
 
-def single(arch, inputs, batches):
-    """Losses, gates and final params of the single-device pytree step."""
+def single(arch, inputs, batches, algo="asgd", use_fused=True, **acfg_kw):
+    """Losses, gates (where the algo has them) and final params of the
+    single-device pytree step."""
     cfg = R.config(arch, get_arch)
     gcfg = tg.GossipConfig(**R.gossip_kw(arch, torch.bfloat16))
-    step = make_train_step(cfg, gcfg=gcfg,
-                           acfg=tasgd.ASGDConfig(eps=R.EPS, use_fused=True))
+    step = make_train_step(cfg, algo=algo, gcfg=gcfg, acfg=tasgd.ASGDConfig(
+        eps=R.EPS, use_fused=use_fused, **acfg_kw))
     head = f"{arch}.w."
     params = params_from_numpy(R.nest({k[len(head):]: v for k, v in
                                        inputs.items() if k.startswith(head)}))
@@ -102,7 +115,8 @@ def single(arch, inputs, batches):
     for b, (si, bi) in batches:
         params, state, _, m = step(params, state, 0, {
             k: torch.from_numpy(v) for k, v in b.items()}, si, bi)
-        metrics.append({n: m[n].numpy() for n in ("loss", "gate")})
+        metrics.append({n: m[n].numpy() for n in ("loss", "gate")
+                        if n in m})
     return metrics, {R.path_key(p): x.numpy()
                      for p, x in SH.tree_paths(params)}
 
@@ -259,7 +273,8 @@ def layer_check(out, ranks, what):
                 si, bi = (int(v) for v in inputs[f"{head}draw.{t}"])
                 params, state, _, m = step(params, state, 0,
                                            {"tokens": toks[t]}, si, bi)
-                metrics.append({n: m[n].numpy() for n in ("loss", "gate")})
+                metrics.append({n: m[n].numpy() for n in ("loss", "gate")
+                        if n in m})
             want[name] = (metrics, {R.path_key(p): x.numpy()
                                     for p, x in SH.tree_paths(params)},
                           {R.path_key(p): x.numpy()
@@ -339,12 +354,100 @@ def layer_check(out, ranks, what):
     return ok
 
 
+def finish(out, procs, logs, what):
+    """Waits for the ranks; True if every one exited 0 (else prints the
+    first failing rank's log)."""
+    try:
+        codes = [p.wait(timeout=TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for f in logs:
+            f.close()
+    print(f"torch {torch.__version__}: {what} ranks exited {codes}",
+          flush=True)
+    if any(codes):
+        print((out / f"rank{codes.index(next(filter(None, codes)))}.log")
+              .read_text()[-3000:])
+    return not any(codes)
+
+
+def blend_check(out):
+    """The step-option ranks against the single-device pytree step under
+    each option; True if every case meets the gates."""
+    out.mkdir(parents=True, exist_ok=True)
+    inputs, batches = case_inputs(B.ARCH, 0)
+    procs, logs = R.start_ranks(out, inputs, script=B.__file__)
+    torch.set_num_threads(1)
+    want = {}
+    try:
+        for case, (algo, acfg_kw) in B.CASES.items():
+            want[case] = single(B.ARCH, inputs, batches, algo=algo,
+                                use_fused=False, **acfg_kw)
+    finally:
+        ran = finish(out, procs, logs, "step-option")
+    if not ran:
+        return False
+    got = [dict(np.load(out / f"rank{r}.npz")) for r in range(R.WORLD)]
+    ok = True
+    for case, (steps, params) in want.items():
+        rel = max(abs(float(got[0][f"{case}.{t}.loss"]) - float(m["loss"]))
+                  / abs(float(m["loss"])) for t, m in enumerate(steps))
+        gates = all(np.array_equal(rk[f"{case}.{t}.gate"], m["gate"])
+                    for rk in got for t, m in enumerate(steps) if "gate" in m)
+        close = all(np.allclose(got[0][f"{case}.final.{k}"], v, rtol=1e-5,
+                                atol=1e-5) for k, v in params.items())
+        good = rel <= 1e-5 and gates and close
+        ok &= good
+        print(f"step option {case}: loss rel {rel:.3e}, gates equal {gates}"
+              f", params close {close}: {'ok' if good else 'MISSED'}",
+              flush=True)
+    return ok
+
+
+def dryrun_check(out):
+    """The dry-run's placed trace: ranks 0 and 1 on meta here against the
+    gloo ranks' real steps; True if every count is equal."""
+    from repro_torch.launch.mesh import fake_process_group, make_host_mesh
+    out.mkdir(parents=True, exist_ok=True)
+    procs, logs = R.start_ranks(out, {}, script=DR.__file__)
+    torch.set_num_threads(1)
+    meta = {}
+    try:
+        for rank in (0, 1):
+            with fake_process_group(DR.WORLD, rank=rank):
+                mesh = make_host_mesh(*DR.MESH, device="cpu")
+                meta[rank] = {c[0]: DR.trace(c, mesh) for c in DR.CASES}
+    finally:
+        ran = finish(out, procs, logs, "dry-run")
+    if not ran:
+        return False
+    ok = True
+    for rank in (0, 1):
+        real = {k: json.loads(str(v)) for k, v in
+                np.load(out / f"rank{rank}.npz").items()}
+        for case, m in meta[rank].items():
+            r = real[case]
+            bad = [k for k in ("flops", "bytes", "arg_bytes", "kernels",
+                               "collectives", "n_collectives") if m[k] != r[k]]
+            if not m["peak"] <= r["peak"] <= 1.01 * m["peak"]:
+                bad.append("peak")
+            ok &= not bad
+            print(f"dry-run {case} rank {rank}: meta = real "
+                  f"{'in every count' if not bad else 'MISSED in ' + str(bad)}"
+                  f" (FLOPs {m['flops']}, peak {m['peak']} B)", flush=True)
+    return ok
+
+
 def main(out_dir):
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     serve_ok = serve_check(out / "serve")
     serve_ok &= layer_check(out / "ssm", T, "'S'/'R'")
     serve_ok &= layer_check(out / "moe", M, "MoE")
+    serve_ok &= blend_check(out / "blend")
+    serve_ok &= dryrun_check(out / "dryrun")
     inputs, batches = {}, {}
     for seed, arch in enumerate(R.ARCHS):
         ins, batches[arch] = case_inputs(arch, seed)

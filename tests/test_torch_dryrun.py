@@ -9,7 +9,10 @@ formulas, and launch/dryrun.py's counters.
   same step run on real CPU tensors (the kernels' plain versions hidden
   from the counters), for reduced configs on each train engine and on
   prefill and decode — a dense arch, mamba2 (B5 and B5b modeled) and
-  granite-moe.
+  granite-moe — at a (1, 1) mesh of one gloo rank (the pytree and serve
+  steps run tensor-parallel: tests/test_torch_dryrun_tp.py holds them at
+  (2, 2); their wire is a float one, the int8 wire on shards being
+  ROADMAP item 15d).
 * The 1-/2-cycle extrapolation equals a full-depth trace of reduced
   configs of 3 cycles (FLOPs, bytes, peak, argument bytes and kernels):
   the dense arch on every step, mamba2 and gemma3's (5 'L' + 'G') cycle
@@ -37,13 +40,20 @@ from repro_torch.configs.registry import assigned_pairs, get_arch
 from repro_torch.core.gossip import GossipConfig
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import hlo_analysis as HA
-from repro_torch.launch.mesh import fake_process_group, make_host_mesh
+from repro_torch.launch.mesh import (fake_process_group, init_ranks,
+                                    make_host_mesh)
 
 PAIRS = [(c.name, s.name) for c, s in assigned_pairs()]
 TRAIN = ShapeConfig("train_small", 16, 4, "train")
 PREFILL = ShapeConfig("prefill_small", 16, 2, "prefill")
 DECODE = ShapeConfig("decode_small", 32, 2, "decode")
 GCFG = GossipConfig(shifts=(1,), partial_blocks=2, wire_format="int8")
+# the pytree step runs tensor-parallel, which carries no int8 wire (15d)
+GCFG_FLOAT = dataclasses.replace(GCFG, wire_format=None)
+
+
+def gcfg_for(engine):
+    return GCFG_FLOAT if engine == "pytree" else GCFG
 STEPS = [(TRAIN, "pytree"), (TRAIN, "packed"), (TRAIN, "pipelined"),
          (PREFILL, "pytree"), (DECODE, "pytree")]
 
@@ -73,10 +83,14 @@ def test_roofline_terms_dominant():
 
 
 @pytest.fixture
-def mesh11():
-    with fake_process_group(1):
+def mesh11(tmp_path):
+    """A (1, 1) mesh on a one-rank gloo group: the pytree and serve steps
+    run tensor-parallel, and their CPU run's transports take gloo."""
+    init_ranks(str(tmp_path / "store"), 0, 1, device="cpu")
+    try:
         yield make_host_mesh(1, 1, device="cpu")
-    assert not dist.is_initialized()
+    finally:
+        dist.destroy_process_group()
 
 
 def filler(vocab, seed=0):
@@ -114,8 +128,8 @@ def test_meta_trace_counts_as_the_cpu_step(mesh11, case):
     arch, (shape, engine) = case
     cfg = get_arch(arch).reduced()
     kw = dict(engine=engine, workers=2)
-    meta = D.trace_step(cfg, shape, mesh11, GCFG, **kw)
-    real = D.trace_step(cfg, shape, mesh11, GCFG, device="cpu",
+    meta = D.trace_step(cfg, shape, mesh11, gcfg_for(engine), **kw)
+    real = D.trace_step(cfg, shape, mesh11, gcfg_for(engine), device="cpu",
                         fill=filler(cfg.vocab), **kw)
     assert meta["flops"] > 0
     for k in ("flops", "bytes", "kernels", "arg_bytes"):
@@ -146,17 +160,27 @@ def test_extrapolation_equals_full_depth(mesh22, case):
     arch, (shape, engine) = case
     base = get_arch(arch).reduced()
     cfg = dataclasses.replace(base, n_layers=3 * len(base.pattern_cycle))
-    rec = D.run_pair(arch, shape.name, multi_pod=False, gcfg=GCFG,
-                     engine=engine, mesh=mesh22, cfg=cfg, shape=shape,
-                     full_budget_s=1e9, verbose=False)
+    rec = D.run_pair(arch, shape.name, multi_pod=False,
+                     gcfg=gcfg_for(engine), engine=engine, mesh=mesh22,
+                     cfg=cfg, shape=shape, full_budget_s=1e9, verbose=False)
     assert rec["trace_full_s"] is not None
     assert not rec["memory"]["extrapolated"]
     sh = rec["shallow"]
     assert sh["flops"] == rec["hlo_flops"]
     assert sh["bytes"] == rec["aten_bytes"]
-    assert sh["peak"] == rec["memory"]["peak_bytes"]
+    bias = 0
+    if shape.kind == "decode":
+        # the tensor-parallel decode's first layer reads the replicated
+        # embedding; every later one a residual left Partial by the MLP,
+        # which it holds beside its all-reduced copy: one (B_local, D) f32
+        # row more from the second layer on, which the 1- and 2-cycle
+        # extrapolation counts again in each further cycle
+        rows = shape.global_batch // mesh22.shape[0]
+        bias = (3 - 2) * rows * cfg.d_model * 4
+    assert sh["peak"] == rec["memory"]["peak_bytes"] + bias
     assert sh["arg_bytes"] == rec["memory"]["argument_bytes"]
     assert sh["kernels"] == rec["kernels"]
+    assert sh["collectives"] == rec["collective_traced"]
 
 
 def test_run_pair_smoke_small_mesh(mesh22):

@@ -432,7 +432,7 @@ def test_mesh_construction_and_errors(launch):
         assert tuple(rk["check.shape"]) == R.MESH
         assert int(rk["check.groups"]) == 4 and int(rk["check.w_local"]) == 2
         assert tuple(rk["check.host_clamped"]) == (4, 2)
-        for k in ("prod_raises", "indivisible_raises", "meta_raises",
+        for k in ("prod_raises", "indivisible_raises", "meta_gathers",
                   "unknown_dim_raises", "no_data_axes_raises",
                   "wrong_slice_raises"):
             assert int(rk[f"check.{k}"]) == 1, k

@@ -436,12 +436,15 @@ def test_partial_plus_replicated_counts_once(launch):
 
 OUT_OF_SCOPE = {
     "int8 wire": dict(gcfg=dict(wire_format="int8")),
-    "silent": dict(algo="silent"),
-    "sync": dict(algo="sync"),
+    # algos silent and sync, the plain blend and the silent flag are
+    # carried (test_torch_tensor_parallel_blend.py); beside an option that
+    # is not, the step still refuses
+    "silent": dict(algo="silent", inner="momentum"),
+    "sync": dict(algo="sync", inner="adam"),
     "momentum": dict(inner="momentum"),
     "rows mode": dict(gcfg=dict(partial_mode="rows")),
-    "plain blend": dict(use_fused=False),
-    "silent flag": dict(silent=True),
+    "plain blend": dict(use_fused=False, gcfg=dict(gossip_every=2)),
+    "silent flag": dict(silent=True, gcfg=dict(partial_mode="rows")),
     "gossip_every 2": dict(gcfg=dict(gossip_every=2)),
     # the 'R', 'S' and MoE archs are carried (test_torch_tensor_parallel_
     # ssm.py, _moe.py); the step's other refusals still hold for them
