@@ -62,8 +62,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      steps each against the plain pytree step
      from the same starts, batches and draws (bitwise, or else within
      1e-5 with the gates equal), B2r/B2a once a round on its path, both
-     steps' times and peaks; [tp-serve] the tensor-parallel serve of the
-     attention archs against the plain one; [tp-ssm] the 'S' and 'R'
+     steps' times and peaks; [tp-options] the same step under the
+     options of ROADMAP 15d/15f — full smollm-135m (W=4, seq 128) on the
+     int8 wire, with live= (worker 1 down on step 2), inner momentum,
+     Adam, gossip_every 2, 'rows' mode and 'rows' on int8, full
+     mamba2-370m (W=4, seq 512) on int8 — each bitwise the plain step
+     with the same option, B2r/B2a once a gossip round (none on the
+     off-rounds), both steps' times and peaks; [tp-serve] the
+     tensor-parallel serve of the attention archs against the plain
+     one; [tp-ssm] the 'S' and 'R'
      archs tensor-parallel: full mamba2-370m (W=4, seq 512) and
      recurrentgemma-9b at full width cut to one (R, R, L) cycle (W=1) 3
      steps each against the plain pytree step, and full mamba2-370m and
@@ -1540,14 +1547,20 @@ def tp_starts(torch, cfg, wn, device):
                     init_model(cfg, 0, device=device))
 
 
-def tp_run(torch, device, cfg, wn, seq, mesh):
+def tp_run(torch, device, cfg, wn, seq, mesh, opts=None):
     """TP_STEPS pytree steps (eps TP_EPS, use_fused, 'leaves' p=4, delay 1)
     of ``cfg``
     from :func:`tp_starts`, seeded batches and draws — tensor-parallel on
     ``mesh`` when given, else the plain single-device step — then
-    TP_TIMED steps timed one by one.  Returns the checked steps' losses
-    and gates, the params after them (CPU), their B2r/B2a launches, the
-    timed steps' median ms and the peak memory."""
+    TP_TIMED steps timed one by one.  ``opts`` (TP_OPTIONS' entries):
+    the step's other options — the wire, 'rows' mode, gossip_every, the
+    inner optimizer, the algo, and ``live=`` (worker TP_DEAD down on step
+    TP_DEAD_STEP; the state elastic).  Returns the checked steps' losses
+    and gates (None where the algo has none), the params after them
+    (CPU), their B2r/B2a launches, the timed steps' median ms and the
+    peak memory."""
+    import dataclasses
+
     from repro_torch import kernels as K
     from repro_torch.core.asgd import ASGDConfig
     from repro_torch.core.gossip import (draw_gossip_indices,
@@ -1555,11 +1568,16 @@ def tp_run(torch, device, cfg, wn, seq, mesh):
     from repro_torch.core.tree import flatten_sorted
     from repro_torch.launch import tensor_parallel as TP
     from repro_torch.launch.mesh import shard_workers
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.steps import init_inner_state, make_train_step
     from repro_torch.launch.train import expandable_segments
 
-    gcfg = pytree_gcfg()
+    opts = opts or {}
+    gcfg = dataclasses.replace(pytree_gcfg(opts.get("mode", "leaves"),
+                                           opts.get("wire")),
+                               gossip_every=opts.get("every", 1))
     acfg = ASGDConfig(eps=TP_EPS, use_fused=True)
+    inner, algo, elastic = (opts.get("inner", "sgd"),
+                            opts.get("algo", "asgd"), opts.get("live", False))
     draws = torch.Generator().manual_seed(0)
     gen = torch.Generator(device=device).manual_seed(2)
     stub = TP_STUB.get(cfg.frontend)
@@ -1571,8 +1589,13 @@ def tp_run(torch, device, cfg, wn, seq, mesh):
         params = tp_starts(torch, cfg, wn, device)
         if mesh is not None:
             params = TP.place_params(mesh, params)
-        gossip = init_gossip_state(params, gcfg)
-        step = make_train_step(cfg, gcfg=gcfg, acfg=acfg, mesh=mesh)
+            gossip = TP.init_placed_gossip_state(params, gcfg,
+                                                 elastic=elastic)
+        else:
+            gossip = init_gossip_state(params, gcfg, elastic=elastic)
+        opt = init_inner_state(params, inner)
+        step = make_train_step(cfg, algo=algo, inner=inner, gcfg=gcfg,
+                               acfg=acfg, mesh=mesh)
         K.reset_launch_counts()
         for t in range(TP_STEPS + TP_TIMED):
             batch = {"tokens": torch.randint(0, cfg.vocab, (wn, 2, seq),
@@ -1582,16 +1605,25 @@ def tp_run(torch, device, cfg, wn, seq, mesh):
                 batch[stub] = 0.1 * torch.randn(
                     (wn, 2, stub_len, cfg.d_model), device=device,
                     generator=gen)
+            kw = {}
+            if elastic:
+                live = torch.ones((wn,), device=device)
+                if t == TP_DEAD_STEP:
+                    live[TP_DEAD] = 0.0
+                kw["live"] = live
             if mesh is not None:
                 batch = {k: shard_workers(v, mesh) for k, v in batch.items()}
+                kw = {k: shard_workers(v, mesh) for k, v in kw.items()}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            params, gossip, _, m = step(params, gossip, 0, batch,
-                                        *draw_gossip_indices(draws, gcfg))
+            params, gossip, opt, m = step(params, gossip, opt, batch,
+                                          *draw_gossip_indices(draws, gcfg),
+                                          **kw)
             torch.cuda.synchronize()
             if t < TP_STEPS:
                 out["losses"].append(float(m["loss"]))
-                out["gates"].append(m["gate"].cpu())
+                out["gates"].append(m["gate"].cpu() if "gate" in m
+                                    else None)
             else:
                 out["ms"].append((time.perf_counter() - t0) * 1e3)
             if t == TP_STEPS - 1:
@@ -1600,7 +1632,7 @@ def tp_run(torch, device, cfg, wn, seq, mesh):
                     (x.full_tensor() if mesh is not None else x).cpu()
                     for x in flatten_sorted(params)[0]]
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        del params, gossip, step
+        del params, gossip, opt, step
         torch.cuda.empty_cache()
     out["ms"] = sorted(out["ms"])[len(out["ms"]) // 2]
     return out
@@ -1645,17 +1677,20 @@ def phase_tp(torch, device):
     return total
 
 
-def tp_train_pair(torch, device, tag, cfg, wn, seq, mesh):
+def tp_train_pair(torch, device, tag, cfg, wn, seq, mesh, opts=None,
+                  rounds=TP_STEPS):
     """:func:`tp_run` of ``cfg`` tensor-parallel on ``mesh`` and plain,
-    held together: bitwise, or else losses within rel 1e-5, params within
-    atol 1e-5 and rel 1e-5, gates equal; B2r/B2a launched once a round on
-    the tensor-parallel path; logged under ``tag``.  Returns both runs."""
+    under ``opts``, held together: bitwise, or else (``opts`` None: the
+    steps without options) losses within rel 1e-5, params within atol
+    1e-5 and rel 1e-5, gates equal; B2r/B2a launched ``rounds`` times (once
+    a gossip round) on the tensor-parallel path; logged under ``tag``.
+    Returns both runs."""
     import torch.distributed as dist
 
     from repro_torch.kernels.gossip_blend.kernel import APPLY_W, REDUCE_W
 
-    tp = tp_run(torch, device, cfg, wn, seq, mesh)
-    plain = tp_run(torch, device, cfg, wn, seq, None)
+    tp = tp_run(torch, device, cfg, wn, seq, mesh, opts)
+    plain = tp_run(torch, device, cfg, wn, seq, None, opts)
     arch = cfg.name
     bitwise = (tp["losses"] == plain["losses"] and all(
         torch.equal(a, b) for a, b in zip(tp["params"], plain["params"])))
@@ -1663,26 +1698,27 @@ def tp_train_pair(torch, device, tag, cfg, wn, seq, mesh):
               for a, b in zip(tp["params"], plain["params"]))
     rel = max(abs(a - b) / abs(b)
               for a, b in zip(tp["losses"], plain["losses"]))
-    gates = all(torch.equal(a, b)
+    gates = all((a is None and b is None) or torch.equal(a, b)
                 for a, b in zip(tp["gates"], plain["gates"]))
-    if not bitwise and not (rel <= 1e-5 and gates and all(
-            torch.allclose(a, b, rtol=1e-5, atol=1e-5)
-            for a, b in zip(tp["params"], plain["params"]))):
+    what = "" if opts is None else f" {opts}"
+    if not bitwise and (opts is not None or not (
+            rel <= 1e-5 and gates and all(
+                torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+                for a, b in zip(tp["params"], plain["params"])))):
         raise AssertionError(
-            f"{tag} {arch}: tensor-parallel vs plain step: loss rel "
+            f"{tag} {arch}{what}: tensor-parallel vs plain step: loss rel "
             f"{rel:.3e}, gates equal {gates}, max |param diff| {err:.3e}")
     for name in (REDUCE_W, APPLY_W):
-        want = TP_STEPS
-        if tp["counts"].get(name, 0) != want:
+        if tp["counts"].get(name, 0) != rounds:
             raise AssertionError(
-                f"{tag} {arch}: {name} launched "
-                f"{tp['counts'].get(name, 0)} times in {TP_STEPS} rounds, "
-                f"want {want}: {tp['counts']}")
-    n_good = [float(g.sum()) for g in tp["gates"]]
+                f"{tag} {arch}{what}: {name} launched "
+                f"{tp['counts'].get(name, 0)} times in {TP_STEPS} steps "
+                f"({rounds} gossip rounds), want {rounds}: {tp['counts']}")
+    n_good = [None if g is None else float(g.sum()) for g in tp["gates"]]
     match = "bitwise" if bitwise else "within rel/atol 1e-5, gates equal"
     stub = TP_STUB.get(cfg.frontend)
     extra = f", {stub} {cfg.encoder_seq or cfg.prefix_len}" if stub else ""
-    log(f"{tag} {arch} (n_layers {cfg.n_layers}, W={wn}, batch 2, seq "
+    log(f"{tag} {arch}{what} (n_layers {cfg.n_layers}, W={wn}, batch 2, seq "
         f"{seq}{extra}) on a {dist.get_backend()} {tuple(mesh.shape)} "
         f"{mesh.mesh_dim_names} mesh: {TP_STEPS} steps {match} the plain "
         f"pytree step (losses {[round(l, 6) for l in tp['losses']]}, max "
@@ -1692,6 +1728,58 @@ def tp_train_pair(torch, device, tag, cfg, wn, seq, mesh):
         f"checked steps); peak {tp['peak_gib']:.2f} GiB vs "
         f"{plain['peak_gib']:.2f} GiB")
     return tp, plain
+
+
+# [tp-options]' runs: (arch, W, seq, options) — every option of the
+# pytree step that the tensor-parallel step takes beside [tp]'s: full
+# smollm-135m under each, and full mamba2-370m (its 'S' layers' heads
+# over `model`) on the int8 wire
+TP_OPTIONS = (("smollm-135m", W, 128, {"wire": "int8"}),
+              ("smollm-135m", W, 128, {"live": True}),
+              ("smollm-135m", W, 128, {"inner": "momentum"}),
+              ("smollm-135m", W, 128, {"inner": "adam"}),
+              ("smollm-135m", W, 128, {"every": 2}),
+              ("smollm-135m", W, 128, {"mode": "rows"}),
+              ("smollm-135m", W, 128, {"mode": "rows", "wire": "int8"}),
+              ("mamba2-370m", W, 512, {"wire": "int8"}))
+TP_DEAD, TP_DEAD_STEP = 1, 1         # [tp-options]: worker 1 down on step 2
+
+
+def phase_tp_options(torch, device):
+    """[tp-options]: the tensor-parallel pytree step under the options
+    ROADMAP items 15d and 15f brought to the mesh (TP_OPTIONS), at one
+    rank of an NCCL group, a (1, 1) ("data", "model") mesh: each run
+    TP_STEPS steps bitwise the plain pytree step with the same option from
+    the same starts, batches and draws; B2r/B2a launched once a gossip
+    round and not on gossip_every's off-rounds, counters zeroed before
+    and read after; each path's step time (median of TP_TIMED) and peak
+    memory.  Returns the tensor-parallel path's launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.gossip_blend.kernel import APPLY_W, REDUCE_W
+    from repro_torch.launch import mesh as MM
+
+    total = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tpo_") as tmp:
+        MM.init_ranks(str(pathlib.Path(tmp) / "store"), 0, 1, device)
+        try:
+            mesh = MM.make_host_mesh(1, 1, device=device)
+            for arch, wn, seq, opts in TP_OPTIONS:
+                every = opts.get("every", 1)
+                rounds = len([t for t in range(TP_STEPS) if t % every == 0])
+                tp, plain = tp_train_pair(torch, device, "[tp-options]",
+                                          get_arch(arch), wn, seq, mesh,
+                                          opts, rounds)
+                for name in (REDUCE_W, APPLY_W):
+                    total[name] = total.get(name, 0) + tp["counts"][name]
+                del tp, plain
+        finally:
+            dist.destroy_process_group()
+    log(f"[tp-options] phase {time.perf_counter() - t0:.1f} s; B2r/B2a "
+        f"launches on the tensor-parallel paths {total}")
+    return total
 
 
 TP_SERVE_BATCH, TP_SERVE_NEW = 4, 16
@@ -4566,6 +4654,8 @@ def main() -> int:
         phase_elastic(torch, path, main_s)
     counts.update(phase_pytree(torch, device))
     for name, n in phase_tp(torch, device).items():
+        counts[name] += n
+    for name, n in phase_tp_options(torch, device).items():
         counts[name] += n
     phase_tp_serve(torch, device)
     tp_ssm = phase_tp_ssm(torch, device)

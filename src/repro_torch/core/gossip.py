@@ -107,24 +107,36 @@ def resolved_wire_format(cfg: GossipConfig):
                      '(expected None, "dtype" or "int8")')
 
 
-def _fake_quant_leaf(x):
-    """Per-worker int8 fake-quant round-trip of one (W, ...) leaf — the
-    pytree engine's stand-in for the int8 wire: one absmax scale per
-    worker per leaf, zeros stay exactly zero (eq. 3).  Bitwise the
-    reference as its engines run it (jitted: ``absmax / 127`` becomes a
-    multiply by the f32 reciprocal, as in packing.quantize_rows)."""
-    x32 = x.float()
-    if x.ndim > 1:
-        absmax = x32.abs().amax(dim=tuple(range(1, x.ndim)), keepdim=True)
-    else:
-        absmax = x32.abs()
+def int8_scale(absmax):
+    """(scale, inv) of the pytree engine's int8 wire from f32 absmaxes:
+    ``absmax / 127`` as the reference's jitted engines compute it (a
+    multiply by the f32 reciprocal, as in packing.quantize_rows), and its
+    reciprocal, 0 where the scale is (an all-zero leaf stays zero)."""
     scale = absmax * (1.0 / 127.0)
     pos = scale > 0.0
     inv = torch.where(pos, 1.0 / torch.where(pos, scale,
                                              torch.ones_like(scale)),
                       torch.zeros_like(scale))
-    q = torch.clamp(torch.round(x32 * inv), -127.0, 127.0)
-    return (q * scale).to(x.dtype)
+    return scale, inv
+
+
+def int8_codes(x32, inv):
+    """The int8 wire's codes of f32 values, as f32: round(x / scale)."""
+    return torch.clamp(torch.round(x32 * inv), -127.0, 127.0)
+
+
+def _fake_quant_leaf(x):
+    """Per-worker int8 fake-quant round-trip of one (W, ...) leaf — the
+    pytree engine's stand-in for the int8 wire: one absmax scale per
+    worker per leaf, zeros stay exactly zero (eq. 3).  Bitwise the
+    reference as its engines run it (:func:`int8_scale`)."""
+    x32 = x.float()
+    if x.ndim > 1:
+        absmax = x32.abs().amax(dim=tuple(range(1, x.ndim)), keepdim=True)
+    else:
+        absmax = x32.abs()
+    scale, inv = int8_scale(absmax)
+    return (int8_codes(x32, inv) * scale).to(x.dtype)
 
 
 def wire_roundtrip(tree, cfg: GossipConfig):

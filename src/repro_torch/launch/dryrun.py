@@ -81,9 +81,9 @@ Each record keeps the reference's keys where they have a counterpart
 ``layout``, ``fits`` (the peak within the card's 80 GiB), the bytes a
 device holds under the tensor-parallel specs (``placed_bytes``), the
 collectives planned and traced apart, and the dtype traced.  A pair the
-step of its layout cannot carry (e.g. the int8 wire on shards, ROADMAP
-item 15d) fails with its error.  The records go to ``build/dryrun/``
-under the repo root.
+step of its layout cannot carry (e.g. gate sums over the data axes on
+the tensor-parallel step, ``check_scope``) fails with its error.  The
+records go to ``build/dryrun/`` under the repo root.
 """
 from __future__ import annotations
 

@@ -202,25 +202,54 @@ def _local(x):
     return x.to_local() if hasattr(x, "to_local") else x
 
 
-def _leaves_bytes(params, gcfg, block_idx: int, w_local: int) -> int:
+def _leaves_bytes(params, gcfg, block_idx: int, w_local: int,
+                  placed: bool = False) -> int:
     """One worker's bytes of the pytree engine's exchange
     (``core.gossip exchange_leaves``: the leaves of group ``block_idx`` in
     their dtype; 'rows' mode: every leaf's 1/p block): of a placed tree,
-    the rank's shards of the groups its leaves' global shapes give."""
-    from ..core.gossip import _block_size, leaf_groups
+    the rank's shards of the groups its leaves' global shapes give ('rows'
+    mode: each leaf's part of the block, ``launch/tensor_parallel.py
+    _rows_range``), on the placed step's int8 wire one byte an element
+    and one f32 scale a sent leaf."""
+    from ..core.gossip import _block_size, leaf_groups, resolved_wire_format
     from ..core.tree import flatten_sorted
     leaves = flatten_sorted(params)[0]
     p = gcfg.partial_blocks
     if gcfg.partial_mode == "rows":
-        n = sum((x.numel() // max(x.shape[1], 1)
-                 * _block_size(x.shape[1], p) if x.ndim >= 2
-                 else x.numel()) * x.element_size()
-                for x in map(_local, leaves))
+        from .tensor_parallel import _rows_range
+        sent = []
+        for x in leaves:
+            n = _local(x).numel()
+            if x.ndim >= 2:
+                lo, hi = (_rows_range(x, block_idx, p) if placed else
+                          (0, _block_size(x.shape[1], p)))
+                n = n // max(_local(x).shape[1], 1) * (hi - lo)
+            sent.append((x, n))
     else:
         groups = flatten_sorted(leaf_groups(params, p))[0]
-        n = sum(_local(x).numel() * x.element_size()
-                for x, g in zip(leaves, groups) if g == block_idx)
-    return n // w_local
+        sent = [(x, _local(x).numel())
+                for x, g in zip(leaves, groups) if g == block_idx]
+    if placed and resolved_wire_format(gcfg) == "int8":
+        return sum(n for _, n in sent) // w_local + 4 * len(sent)
+    return sum(n * x.element_size() for x, n in sent) // w_local
+
+
+def _absmax_bytes(params, gcfg, block_idx: int, w_local: int) -> int:
+    """The placed int8 wire's absmax max over ``model``: (W_local, n_sent)
+    f32 where a sent leaf is sharded (``launch/tensor_parallel.py
+    _int8_payload``), else nothing."""
+    from ..core.gossip import leaf_groups
+    from ..core.tree import flatten_sorted
+    from .tensor_parallel import _replicated
+    leaves = flatten_sorted(params)[0]
+    if gcfg.partial_mode == "rows":
+        sent = leaves
+    else:
+        groups = flatten_sorted(leaf_groups(params, gcfg.partial_blocks))[0]
+        sent = [x for x, g in zip(leaves, groups) if g == block_idx]
+    if all(_replicated(x) for x in sent):
+        return 0
+    return w_local * len(sent) * 4
 
 
 def planned_collectives(*, algo: str, engine: str, gcfg, n_shards: int,
@@ -236,8 +265,10 @@ def planned_collectives(*, algo: str, engine: str, gcfg, n_shards: int,
     over ``psum_ranks`` (``model``) ranks, 'sync' a rank-order sum of one
     worker's shards over the worker group, and the step's metrics — the
     losses and, for 'asgd', the gates, (W_local,) f32 each — gathered
-    over it.  Returns {"total", "by_op", "count"} as the reference's parse
-    does."""
+    over it; under the int8 wire the ring send's codes and scales, and
+    the scales' absmaxes' max over ``model``.  Returns {"total", "by_op",
+    "count"} as the reference's parse does."""
+    from ..core.gossip import resolved_wire_format
     by_op: dict = {}
     count = 0
     if algo == "sync":
@@ -260,8 +291,16 @@ def planned_collectives(*, algo: str, engine: str, gcfg, n_shards: int,
                  for b in range(gcfg.partial_blocks)]
         if engine == "pytree":
             sent = [moved_rows(gcfg.shifts[s], n_shards, w_local)
-                    * _leaves_bytes(params, gcfg, b, w_local)
+                    * _leaves_bytes(params, gcfg, b, w_local, placed)
                     for s, b in pairs]
+            if placed and psum_ranks > 1 and \
+                    resolved_wire_format(gcfg) == "int8":
+                absmax = sum(_absmax_bytes(params, gcfg, b, w_local)
+                             for _, b in pairs)
+                if absmax:
+                    by_op["all-reduce"] = (_WIRE_FACTOR["all-reduce"]
+                                           * absmax / len(pairs))
+                    count += 1
         else:
             sent = [ppermute_bytes(spec, gcfg, n_shards, w_local, s, b)
                     for s, b in pairs]

@@ -242,6 +242,17 @@ def psum_rank_order(x, mesh, axes):
     return out
 
 
+def pmax(x, mesh, axes):
+    """The elementwise max of ``x`` over the ranks of the mesh dims
+    ``axes`` (the reference's ``lax.pmax``; a max is exact in any order),
+    in one ``all_reduce``.  ``x`` is taken over (reduced in place)."""
+    group = _axes_group(mesh, axes)
+    _check_transport(x, group)
+    if _travels(x) and dist.get_world_size(group) > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
 def shard_map_workers(fn, mesh, *, replicated_argnums=()):
     """``fn`` over the worker axes: the wrapper takes global ``(W, ...)``
     arguments, calls ``fn`` on this rank's ``(W_local, ...)`` slice of

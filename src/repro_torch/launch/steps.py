@@ -87,6 +87,27 @@ def tree_loss_and_grad(cfg: ModelConfig, params, batch, *, remat=True):
         torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads)])
 
 
+def inner_direction(params, grads, opt_state, inner: str, eps):
+    """(dw, new_opt_state): w - eps*dw is the inner optimizer's step
+    ('sgd': the gradient itself; 'momentum', 'adam': optim/optimizers.py's
+    update), on a tree or the packed tensor."""
+    from ..optim import adam_update, momentum_update
+    if inner == "sgd":
+        return grads, opt_state
+    update = momentum_update if inner == "momentum" else adam_update
+    new_p, new_s = update(params, grads, opt_state, eps)
+    return tree_map(lambda w, n: (w - n) / eps, params, new_p), new_s
+
+
+def check_live(live, algo: str) -> None:
+    """``live=`` gates the gossip round: algos 'sync' and 'silent' have
+    none and refuse it."""
+    if live is not None and algo != "asgd":
+        raise ValueError(
+            f"live= (per-peer liveness) requires algo='asgd' (got "
+            f"{algo!r}): sync/silent carry no gossip state to gate")
+
+
 def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
                     inner="sgd", gcfg: GossipConfig | None = None,
                     acfg: ASGDConfig | None = None, remat=True,
@@ -112,10 +133,13 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     (models.model.forward_w), the reference's default.
     mesh: a ``("data", "model")`` DeviceMesh (the reference's
     ``spmd_axes=``): the pytree step on this rank's worker slice (of the
-    params and of the batch, frames and patches too), every
-    leaf a DTensor placed over ``model`` by launch/sharding.py
-    (launch/tensor_parallel.py: place_params, TensorParallelStep, whose
-    scope check raises for what it does not carry).
+    params and of the batch, frames and patches too, and of ``live``),
+    every leaf a DTensor placed over ``model`` by launch/sharding.py, with
+    every option of the pytree step — algos, inner optimizers, both
+    blends, every wire (int8 on shards), 'leaves' and 'rows' modes,
+    ``gossip_every``, ``live=`` — and neither packed engine
+    (launch/tensor_parallel.py: place_params, init_placed_gossip_state,
+    TensorParallelStep, check_scope).
     Raises NotImplementedError for an arch the port does not carry
     (models.blocks.check_supported); 'S' layers train through the SSD
     scan's backward (kernel B5b on the card), so a batch's seq must be a
@@ -123,8 +147,6 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
     The reported loss includes the MoE router's aux term (models.model
     .loss_fn_w), which every engine differentiates with the rest.
     """
-    from ..optim import adam_update, momentum_update
-
     M.check_supported(cfg)
 
     gcfg = gcfg or GossipConfig()
@@ -154,17 +176,7 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
                     pack_spec=pack_spec, pipelined=pipelined,
                     lr_schedule=lr_schedule)
         return TensorParallelStep(cfg, mesh, gcfg=gcfg, acfg=acfg,
-                                  remat=remat, algo=algo)
-
-    def direction(params, grads, opt_state):
-        """(dw, new_opt_state): w - eps*dw is the inner-optimizer step
-        (params and grads: a tree or the packed tensor)."""
-        if inner == "sgd":
-            return grads, opt_state
-        update = momentum_update if inner == "momentum" else adam_update
-        new_p, new_s = update(params, grads, opt_state, acfg.eps)
-        return tree_map(lambda w, n: (w - n) / acfg.eps, params,
-                        new_p), new_s
+                                  remat=remat, algo=algo, inner=inner)
 
     def baseline(params, dw):
         """The non-gossip algos' update: sync or silent."""
@@ -172,18 +184,13 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
             return sync_dp_apply(params, dw, acfg.eps)
         return local_sgd_apply(params, dw, acfg.eps)
 
-    def check_live(live):
-        if live is not None and algo != "asgd":
-            raise ValueError(
-                f"live= (per-peer liveness) requires algo='asgd' (got "
-                f"{algo!r}): sync/silent carry no gossip state to gate")
-
     def pytree_step(params, gossip, opt_state, batch, shift_idx, block_idx,
                     live=None):
-        check_live(live)
+        check_live(live, algo)
         loss, grads = tree_loss_and_grad(cfg, params, batch, remat=remat)
         with torch.no_grad():
-            dw, opt_state = direction(params, grads, opt_state)
+            dw, opt_state = inner_direction(params, grads, opt_state, inner,
+                                            acfg.eps)
             metrics = {"loss": loss.mean()}
             if algo != "asgd":
                 return baseline(params, dw), gossip, opt_state, metrics
@@ -198,7 +205,7 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
 
     def step(packed, gossip, opt_state, batch, shift_idx, block_idx,
              live=None):
-        check_live(live)
+        check_live(live, algo)
         lr = None if lr_schedule is None else lr_schedule(gossip.step)
         if pipelined and not acfg.silent:
             # INITIATE: this round's payload from the pre-blend ensemble;
@@ -209,7 +216,8 @@ def make_train_step(cfg: ModelConfig, *, pack_spec=None, algo="asgd",
         loss, pgrads = packed_loss_and_grad(cfg, packed, batch, pack_spec,
                                             remat=remat)
         with torch.no_grad():
-            dw, opt_state = direction(packed, pgrads, opt_state)
+            dw, opt_state = inner_direction(packed, pgrads, opt_state, inner,
+                                            acfg.eps)
             metrics = {"loss": loss.mean()}
             if algo != "asgd":
                 return baseline(packed, dw), gossip, opt_state, metrics

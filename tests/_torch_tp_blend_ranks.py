@@ -15,9 +15,10 @@ step's metrics; under the plain blend each round's (W_local, 3) eq.-4
 sums as the step sums them over ``model`` (a replicated leaf's terms on
 ``model`` rank 0 only) and beside them the planted fault's (a replicated
 leaf's terms on every ``model`` rank); the rank's workers, the round
-counter after the steps, whether live= raised, and (rank 0) the
-gathered final params.  Imports torch and the port only.
+counter after the steps, whether live= held (:func:`live_check`), and
+(rank 0) the gathered final params.  Imports torch and the port only.
 """
+import dataclasses
 import sys
 
 import numpy as np
@@ -28,6 +29,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.asgd import ASGDConfig
 from repro_torch.core.gossip import GossipConfig, init_gossip_state
+from repro_torch.core.tree import flatten_sorted
 from repro_torch.launch import mesh as MM
 from repro_torch.launch import sharding as SH
 from repro_torch.launch import tensor_parallel as TP
@@ -62,6 +64,29 @@ class PlainSums:
                            gate_scale, acfg, mesh)
 
 
+def live_check(step, algo, params, gossip, batch):
+    """live=: under algo 'asgd' one more step with live = ones on an
+    elastic copy of the state (its buffered payload alive) is bitwise the
+    step without it, gates and buffer too; under sync and silent live=
+    raises ValueError, as the single-device step's check_live."""
+    live = torch.ones(gossip.buf_live.shape if gossip.buf_live is not None
+                      else flatten_sorted(params)[0][0].to_local().shape[:1])
+    if algo != "asgd":
+        try:
+            step(params, gossip, 0, batch, 0, 0, live=live)
+        except ValueError:
+            return True
+        return False
+    want = step(params, gossip, 0, batch, 0, 0)
+    got = step(params, dataclasses.replace(gossip, buf_live=live), 0, batch,
+               0, 0, live=live)
+    same = [torch.equal(a.to_local(), b.to_local()) for a, b in zip(
+        *(flatten_sorted({"p": o[0], "b": o[1].buf})[0]
+          for o in (got, want)))]
+    return (all(same) and torch.equal(got[3]["gate"], want[3]["gate"])
+            and torch.equal(got[1].buf_live, live))
+
+
 def run_case(mesh, inp, out, rank, case):
     algo, acfg_kw = CASES[case]
     cfg = R.config(ARCH, get_arch)
@@ -89,12 +114,8 @@ def run_case(mesh, inp, out, rank, case):
         out[f"{case}.{t}.terms"] = a.numpy()
         out[f"{case}.{t}.doubled"] = b.numpy()
     out[f"{case}.step"] = np.int64(gossip.step)
-    try:
-        step(params, gossip, 0, batch, 0, 0,
-             live=torch.ones(MM.local_worker_count(mesh, R.W)))
-        out[f"{case}.live_raises"] = np.int64(0)
-    except NotImplementedError:
-        out[f"{case}.live_raises"] = np.int64(1)
+    out[f"{case}.live_ok"] = np.int64(live_check(step, algo, params, gossip,
+                                                 batch))
     final = TP.gather_params(mesh, params)
     if rank == 0:
         for path, x in SH.tree_paths(final):

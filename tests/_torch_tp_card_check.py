@@ -39,7 +39,12 @@ case's inputs, held as training above.  The dry-run's placed trace:
 tests/test_torch_dryrun_tp.py's cases (tests/_torch_tp_dryrun_ranks.py),
 ranks 0 and 1 traced on meta here against the gloo ranks' real run,
 every count equal but the peak, the real one within 1% above (that
-test's bound).
+test's bound).  The options ROADMAP 15d/15f brought to the mesh:
+tests/test_torch_tensor_parallel_options.py's cases
+(tests/_torch_tp_options_ranks.py: the int8 wire on shards, live=,
+momentum, Adam, sync with momentum, gossip_every 2, 'rows' mode alone
+and on int8) against the single-device step at that test's gates, its
+int8 exchange check and its planted faults.
 
 Prints a line a case; exits 1 if a rank fails or a case misses.
 """
@@ -53,6 +58,7 @@ import torch
 import _torch_tp_blend_ranks as B
 import _torch_tp_dryrun_ranks as DR
 import _torch_tp_moe_ranks as M
+import _torch_tp_options_ranks as O
 import _torch_tp_ranks as R
 import _torch_tp_serve_ranks as S
 import _torch_tp_ssm_ranks as T
@@ -62,7 +68,8 @@ from repro_torch.core import asgd as tasgd
 from repro_torch.core import gossip as tg
 from repro_torch.core.tree import tree_map
 from repro_torch.launch import sharding as SH
-from repro_torch.launch.steps import make_train_step, tree_loss_and_grad
+from repro_torch.launch.steps import (init_inner_state, make_train_step,
+                                      tree_loss_and_grad)
 from repro_torch.models import model as TM
 
 TIMEOUT_S = 900
@@ -406,6 +413,95 @@ def blend_check(out):
     return ok
 
 
+def options_check(out):
+    """The step options of ROADMAP 15d/15f (tests/_torch_tp_options_ranks
+    .py) against the single-device pytree step with each option; True if
+    every case meets the test's gates: losses within rel 1e-5, gates and
+    buf_live equal, params within rtol and atol 1e-5 (Adam: each step
+    against the single-device step from the ranks' state on their
+    gradient, the gradient within 1e-5 of the single-device one's); the
+    int8 exchange on shards bitwise the single-device one and the
+    shard-absmax fault missing it; the planted faults missing."""
+    out.mkdir(parents=True, exist_ok=True)
+    inputs, batches = case_inputs(O.ARCH, 0)
+    procs, logs = R.start_ranks(out, inputs, script=O.__file__)
+    torch.set_num_threads(1)
+    want = {}
+    try:
+        for case in O.CASES:
+            want[case] = single_option(case, inputs, batches)
+    finally:
+        ran = finish(out, procs, logs, "15d/15f step-option")
+    if not ran:
+        return False
+    got = [dict(np.load(out / f"rank{r}.npz")) for r in range(R.WORLD)]
+
+    def meets(tag, case):
+        steps, params = want[case]
+        rel = max(abs(float(got[0][f"{tag}.{t}.loss"]) - float(m["loss"]))
+                  / abs(float(m["loss"])) for t, m in enumerate(steps))
+        equal = all(np.array_equal(rk[f"{tag}.{t}.{k}"], m[k])
+                    for rk in got for t, m in enumerate(steps)
+                    for k in ("gate", "buf_live") if k in m)
+        if O.CASES[case][1] == "adam":
+            close = all(int(got[0][f"{tag}.{t}.tf_beyond"]) == 0 and float(
+                got[0][f"{tag}.{t}.grad_rel"]) <= 1e-5
+                for t in range(len(steps)))
+        else:
+            close = all(np.allclose(got[0][f"{tag}.final.{k}"], v,
+                                    rtol=1e-5, atol=1e-5)
+                        for k, v in params.items())
+        return rel, equal, close, rel <= 1e-5 and equal and close
+    ok = True
+    for case in O.CASES:
+        rel, equal, close, good = meets(case, case)
+        ok &= good
+        print(f"15d/15f option {case}: loss rel {rel:.3e}, gates and "
+              f"buf_live equal {equal}, params close {close}: "
+              f"{'ok' if good else 'MISSED'}", flush=True)
+    for fault, case in O.FAULTS.items():
+        good = not meets(fault, case)[3]
+        ok &= good
+        verdict = "missed, as it must" if good else "MET: the check is blind"
+        print(f"15d/15f planted fault {fault}: {verdict}", flush=True)
+    pairs = [k for k in got[0] if k.startswith("xchg.") and
+             k.count(".") == 2]
+    exact = all(float(rk[k]) == 0.0 for rk in got for k in pairs)
+    fault = all(float(rk[k + ".fault"]) > 0.0 for rk in got for k in pairs
+                if int(rk[k + ".sharded"]))
+    ok &= exact and fault
+    print(f"15d int8 exchange on shards bitwise the single-device one on "
+          f"{len(pairs)} pairs: {exact}; shard-absmax fault misses: {fault}",
+          flush=True)
+    return ok
+
+
+def single_option(case, inputs, batches):
+    """Losses, gates, buf_live and final params of the single-device
+    pytree step under a tests/_torch_tp_options_ranks.py case."""
+    algo, inner, _, acfg_kw, elastic = O.CASES[case]
+    cfg = R.config(O.ARCH, get_arch)
+    gcfg = tg.GossipConfig(**O.gossip_kw(case))
+    step = make_train_step(cfg, algo=algo, inner=inner, gcfg=gcfg,
+                           acfg=tasgd.ASGDConfig(eps=R.EPS, **{
+                               "use_fused": True, **acfg_kw}))
+    head = f"{O.ARCH}.w."
+    params = params_from_numpy(R.nest({k[len(head):]: v for k, v in
+                                       inputs.items() if k.startswith(head)}))
+    state = tg.init_gossip_state(params, gcfg, elastic=elastic)
+    opt, metrics = init_inner_state(params, inner), []
+    for t, (b, (si, bi)) in enumerate(batches):
+        kw = {"live": O.live_at(t)} if elastic else {}
+        params, state, opt, m = step(params, state, opt, {
+            k: torch.from_numpy(v) for k, v in b.items()}, si, bi, **kw)
+        rec = {n: m[n].numpy() for n in ("loss", "gate") if n in m}
+        if elastic:
+            rec["buf_live"] = state.buf_live.numpy()
+        metrics.append(rec)
+    return metrics, {R.path_key(p): x.numpy()
+                     for p, x in SH.tree_paths(params)}
+
+
 def dryrun_check(out):
     """The dry-run's placed trace: ranks 0 and 1 on meta here against the
     gloo ranks' real steps; True if every count is equal."""
@@ -447,6 +543,7 @@ def main(out_dir):
     serve_ok &= layer_check(out / "ssm", T, "'S'/'R'")
     serve_ok &= layer_check(out / "moe", M, "MoE")
     serve_ok &= blend_check(out / "blend")
+    serve_ok &= options_check(out / "options")
     serve_ok &= dryrun_check(out / "dryrun")
     inputs, batches = {}, {}
     for seed, arch in enumerate(R.ARCHS):

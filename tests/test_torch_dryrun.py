@@ -11,8 +11,8 @@ formulas, and launch/dryrun.py's counters.
   prefill and decode — a dense arch, mamba2 (B5 and B5b modeled) and
   granite-moe — at a (1, 1) mesh of one gloo rank (the pytree and serve
   steps run tensor-parallel: tests/test_torch_dryrun_tp.py holds them at
-  (2, 2); their wire is a float one, the int8 wire on shards being
-  ROADMAP item 15d).
+  (2, 2)), every train engine on the int8 wire (the pytree step's on the
+  rank's shards).
 * The 1-/2-cycle extrapolation equals a full-depth trace of reduced
   configs of 3 cycles (FLOPs, bytes, peak, argument bytes and kernels):
   the dense arch on every step, mamba2 and gemma3's (5 'L' + 'G') cycle
@@ -48,12 +48,6 @@ TRAIN = ShapeConfig("train_small", 16, 4, "train")
 PREFILL = ShapeConfig("prefill_small", 16, 2, "prefill")
 DECODE = ShapeConfig("decode_small", 32, 2, "decode")
 GCFG = GossipConfig(shifts=(1,), partial_blocks=2, wire_format="int8")
-# the pytree step runs tensor-parallel, which carries no int8 wire (15d)
-GCFG_FLOAT = dataclasses.replace(GCFG, wire_format=None)
-
-
-def gcfg_for(engine):
-    return GCFG_FLOAT if engine == "pytree" else GCFG
 STEPS = [(TRAIN, "pytree"), (TRAIN, "packed"), (TRAIN, "pipelined"),
          (PREFILL, "pytree"), (DECODE, "pytree")]
 
@@ -128,8 +122,8 @@ def test_meta_trace_counts_as_the_cpu_step(mesh11, case):
     arch, (shape, engine) = case
     cfg = get_arch(arch).reduced()
     kw = dict(engine=engine, workers=2)
-    meta = D.trace_step(cfg, shape, mesh11, gcfg_for(engine), **kw)
-    real = D.trace_step(cfg, shape, mesh11, gcfg_for(engine), device="cpu",
+    meta = D.trace_step(cfg, shape, mesh11, GCFG, **kw)
+    real = D.trace_step(cfg, shape, mesh11, GCFG, device="cpu",
                         fill=filler(cfg.vocab), **kw)
     assert meta["flops"] > 0
     for k in ("flops", "bytes", "kernels", "arg_bytes"):
@@ -161,7 +155,7 @@ def test_extrapolation_equals_full_depth(mesh22, case):
     base = get_arch(arch).reduced()
     cfg = dataclasses.replace(base, n_layers=3 * len(base.pattern_cycle))
     rec = D.run_pair(arch, shape.name, multi_pod=False,
-                     gcfg=gcfg_for(engine), engine=engine, mesh=mesh22,
+                     gcfg=GCFG, engine=engine, mesh=mesh22,
                      cfg=cfg, shape=shape, full_budget_s=1e9, verbose=False)
     assert rec["trace_full_s"] is not None
     assert not rec["memory"]["extrapolated"]

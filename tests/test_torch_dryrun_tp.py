@@ -272,16 +272,36 @@ def test_packed_pairs_stay_worker_split(mesh22):
 
 
 def test_a_pair_the_mesh_step_cannot_carry_fails():
-    """The int8 wire on the pytree step raises (15d) in run_pair: no
-    replicated trace stands in for it."""
+    """The int8 wire on the pytree step, once refused (ROADMAP 15d), runs
+    on the placed trace in run_pair: its planned ring send is each
+    group's local shards in int8 codes plus one f32 scale a worker and
+    sent leaf, and the scales' absmaxes' max over ``model`` an
+    all-reduce of (W_local, n_sent) f32."""
+    from repro_torch.core.gossip import leaf_groups
+    from repro_torch.core.tree import flatten_sorted
     cfg = get_arch("smollm-135m").reduced()
-    with pytest.raises(NotImplementedError, match="15d"):
-        with fake_process_group(4):
-            D.run_pair("smollm-135m", DR.TRAIN.name, multi_pod=False,
-                       gcfg=dataclasses.replace(DR.GCFG, wire_format="int8"),
-                       mesh=make_host_mesh(2, 2, device="cpu"), cfg=cfg,
-                       shape=DR.TRAIN, verbose=False)
+    int8 = dataclasses.replace(DR.GCFG, wire_format="int8")
+    with fake_process_group(4):
+        mesh = make_host_mesh(2, 2, device="cpu")
+        rec = D.run_pair("smollm-135m", DR.TRAIN.name, multi_pod=False,
+                         gcfg=int8, mesh=mesh, cfg=cfg, shape=DR.TRAIN,
+                         full_budget_s=0.0, verbose=False)
+        specs = ST.input_specs(cfg, DR.TRAIN, mesh, int8,
+                               dtype=D.TRACE_DTYPE)
+        params = D.rank_args(specs, mesh, layout="tensor_parallel")["params"]
     assert not dist.is_initialized()
+    assert rec["layout"] == "tensor_parallel" and rec["w_local"] == 1
+    leaves = flatten_sorted(params)[0]
+    groups = flatten_sorted(leaf_groups(params, int8.partial_blocks))[0]
+    sent = [[x.to_local() for x, g in zip(leaves, groups) if g == b]
+            for b in range(int8.partial_blocks)]
+    # shift 1 over two worker groups of W_local 1: the one row crosses
+    codes = [sum(x.numel() for x in xs) + 4 * len(xs) for xs in sent]
+    plan = rec["collective_planned"]
+    assert plan["ppermute"] == sum(codes) / len(codes)
+    assert plan["all-reduce"] == 2.0 * sum(4 * len(xs) for xs in sent) / 2
+    assert plan["ppermute"] < sum(sum(x.numel() * 4 for x in xs)
+                                  for xs in sent) / len(sent) / 3
 
 
 def test_transports_move_nothing_on_meta():

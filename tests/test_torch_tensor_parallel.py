@@ -395,8 +395,9 @@ def test_wire_bytes_are_the_shards(launch, arch):
 @pytest.mark.parametrize("arch", R.ARCHS)
 def test_hints_redistribute_and_live_raises(launch, arch):
     """seq_parallel's hints moved the residual stream on the mesh (none
-    moved where the config has no seq_parallel: whisper's); live= raised
-    NotImplementedError on every rank."""
+    moved where the config has no seq_parallel: whisper's); live= on a
+    state not initialized elastic raised ValueError on every rank, as the
+    single-device step's does."""
     _, _, _, ranks = launch
     seq_parallel = R.config(arch, get_arch).seq_parallel
     for rk in ranks:
@@ -434,11 +435,11 @@ def test_partial_plus_replicated_counts_once(launch):
         np.testing.assert_array_equal(rk["probe.grad"], np.ones(3))
 
 
+# options the step refused before it carried them (ROADMAP 15d, 15f),
+# alone and beside the algos, the plain blend, the silent flag and the
+# 'R' and 'S' archs it carried already
 OUT_OF_SCOPE = {
     "int8 wire": dict(gcfg=dict(wire_format="int8")),
-    # algos silent and sync, the plain blend and the silent flag are
-    # carried (test_torch_tensor_parallel_blend.py); beside an option that
-    # is not, the step still refuses
     "silent": dict(algo="silent", inner="momentum"),
     "sync": dict(algo="sync", inner="adam"),
     "momentum": dict(inner="momentum"),
@@ -446,8 +447,6 @@ OUT_OF_SCOPE = {
     "plain blend": dict(use_fused=False, gcfg=dict(gossip_every=2)),
     "silent flag": dict(silent=True, gcfg=dict(partial_mode="rows")),
     "gossip_every 2": dict(gcfg=dict(gossip_every=2)),
-    # the 'R', 'S' and MoE archs are carried (test_torch_tensor_parallel_
-    # ssm.py, _moe.py); the step's other refusals still hold for them
     "recurrentgemma-9b": dict(arch="recurrentgemma-9b",
                               gcfg=dict(wire_format="int8")),
     "mamba2-370m": dict(arch="mamba2-370m", inner="momentum"),
@@ -456,17 +455,21 @@ OUT_OF_SCOPE = {
 
 @pytest.mark.parametrize("option", sorted(OUT_OF_SCOPE))
 def test_out_of_scope_options_raise(option):
-    """Each option the tensor-parallel step does not carry raises
-    NotImplementedError naming its ROADMAP item, before the mesh is
-    touched."""
+    """Each option the tensor-parallel step once refused passes
+    check_scope, and make_train_step builds the step with it, before the
+    mesh is touched."""
     kw = dict(OUT_OF_SCOPE[option])
     cfg = dataclasses.replace(get_arch(kw.pop("arch", "smollm-135m"))
                               .reduced(), **kw.pop("cfg", {}))
     gcfg = tg.GossipConfig(**kw.pop("gcfg", {}))
     acfg = tasgd.ASGDConfig(eps=R.EPS, use_fused=kw.pop("use_fused", True),
                             silent=kw.pop("silent", False))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 15"):
-        make_train_step(cfg, gcfg=gcfg, acfg=acfg, mesh=object(), **kw)
+    kw = {"algo": "asgd", "inner": "sgd", **kw}
+    TP.check_scope(cfg, gcfg=gcfg, acfg=acfg, **kw)
+    step = make_train_step(cfg, gcfg=gcfg, acfg=acfg, mesh=R.ModelMesh(),
+                           **kw)
+    assert (step.algo, step.inner, step.acfg) == (kw["algo"], kw["inner"],
+                                                  acfg)
 
 
 def test_scope_is_decided_by_features():

@@ -223,41 +223,47 @@ def test_plain_sums_count_replicated_leaves_once(launch):
 
 def test_round_counter_and_live(launch):
     """The plain blend and the silent flag bump the round counter once a
-    step; sync and silent leave the gossip state alone; live= raises
-    NotImplementedError on every rank under every option."""
+    step; sync and silent leave the gossip state alone; live= holds on
+    every rank under every option: under 'asgd' a step with live = ones
+    on an elastic copy of the state is bitwise the step without live=,
+    under sync and silent live= raises ValueError."""
     _, _, _, ranks = launch
     for rk in ranks:
         for case in CASES:
             want = R.STEPS if B.CASES[case][0] == "asgd" else 0
             assert int(rk[f"{case}.step"]) == want, case
-            assert int(rk[f"{case}.live_raises"]) == 1, case
+            assert int(rk[f"{case}.live_ok"]) == 1, case
 
 
+# options the mesh step refused before it carried them (ROADMAP 15d, 15f)
 STILL_OUT = {
-    "momentum": (dict(inner="momentum"), "15f"),
-    "adam": (dict(inner="adam"), "15f"),
-    "rows mode": (dict(gcfg=dict(partial_mode="rows")), "15f"),
-    "gossip_every 2": (dict(gcfg=dict(gossip_every=2)), "15f"),
-    "sync with momentum": (dict(algo="sync", inner="momentum"), "15f"),
-    "int8 wire": (dict(gcfg=dict(wire_format="int8")), "15d"),
-    "silent flag on int8": (dict(silent=True, gcfg=dict(wire_format="int8")),
-                            "15d"),
+    "momentum": dict(inner="momentum"),
+    "adam": dict(inner="adam"),
+    "rows mode": dict(gcfg=dict(partial_mode="rows")),
+    "gossip_every 2": dict(gcfg=dict(gossip_every=2)),
+    "sync with momentum": dict(algo="sync", inner="momentum"),
+    "int8 wire": dict(gcfg=dict(wire_format="int8")),
+    "silent flag on int8": dict(silent=True, gcfg=dict(wire_format="int8")),
 }
 
 
 @pytest.mark.parametrize("option", sorted(STILL_OUT))
 def test_options_still_out_of_scope_raise(option):
-    """Each option the mesh step still does not carry raises
-    NotImplementedError naming its ROADMAP item, before the mesh is
-    touched."""
-    kw, item = STILL_OUT[option]
-    kw = dict(kw)
+    """Each option the mesh step once refused now passes check_scope, and
+    make_train_step builds the tensor-parallel step with it, before the
+    mesh is touched."""
+    kw = dict(STILL_OUT[option])
     cfg = get_arch(ARCH).reduced()
     gcfg = tg.GossipConfig(**kw.pop("gcfg", {}))
     acfg = tasgd.ASGDConfig(eps=R.EPS, use_fused=False,
                             silent=kw.pop("silent", False))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        make_train_step(cfg, gcfg=gcfg, acfg=acfg, mesh=object(), **kw)
+    kw = {"algo": "asgd", "inner": "sgd", **kw}
+    TP.check_scope(cfg, gcfg=gcfg, acfg=acfg, **kw)
+    step = make_train_step(cfg, gcfg=gcfg, acfg=acfg, mesh=R.ModelMesh(),
+                           **kw)
+    assert isinstance(step, TP.TensorParallelStep)
+    assert (step.algo, step.inner, step.gcfg) == (kw["algo"], kw["inner"],
+                                                  gcfg)
 
 
 @pytest.mark.parametrize("case", CASES)

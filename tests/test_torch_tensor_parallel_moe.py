@@ -468,8 +468,9 @@ SCOPE_CASES = (
 def test_moe_configs_pass_scope(arch, cuts, maker):
     """Configs with MoE FFNs, beside 'R' or 'S' layers too, pass
     check_scope (the training maker) or check_serve_scope (prefill and
-    decode) and build their mesh steps' scope check without raising; the
-    int8 wire on shards stays refused, naming item 15d."""
+    decode) and build their mesh steps' scope check without raising; so
+    does the int8 wire on shards (ROADMAP 15d), and make_train_step builds
+    the tensor-parallel step with it."""
     cfg = dataclasses.replace(get_arch(arch).reduced(), **cuts)
     assert cfg.n_experts > 0
     if maker != "train":
@@ -478,11 +479,10 @@ def test_moe_configs_pass_scope(arch, cuts, maker):
     kw = dict(algo="asgd", inner="sgd",
               acfg=tasgd.ASGDConfig(eps=R.EPS, use_fused=True))
     TP.check_scope(cfg, gcfg=tg.GossipConfig(), **kw)
-    with pytest.raises(NotImplementedError, match="item 15d"):
-        TP.check_scope(cfg, gcfg=tg.GossipConfig(wire_format="int8"), **kw)
-    with pytest.raises(NotImplementedError, match="item 15d"):
-        make_train_step(cfg, gcfg=tg.GossipConfig(wire_format="int8"),
-                        mesh=object(), **kw)
+    int8 = tg.GossipConfig(wire_format="int8")
+    TP.check_scope(cfg, gcfg=int8, **kw)
+    step = make_train_step(cfg, gcfg=int8, mesh=R.ModelMesh(), **kw)
+    assert isinstance(step, TP.TensorParallelStep) and step.gcfg == int8
 
 
 def test_moe_serve_over_data_needs_rows():

@@ -520,11 +520,11 @@ def test_decode_moves_no_cache(launch, name):
 @pytest.mark.parametrize("arch", ("mamba2-370m", "recurrentgemma-9b"))
 def test_ssm_archs_pass_both_scopes(arch):
     """'S' and 'R' layers pass check_scope and check_serve_scope at full
-    size, under any name; the int8 wire stays refused (item 15d)."""
+    size, under any name; so does the int8 wire on shards (ROADMAP
+    15d)."""
     cfg = dataclasses.replace(get_arch(arch), name="some-lm")
     kw = dict(algo="asgd", inner="sgd",
               acfg=tasgd.ASGDConfig(eps=R.EPS, use_fused=True))
     TP.check_scope(cfg, gcfg=tg.GossipConfig(), **kw)
     TP.check_serve_scope(cfg)
-    with pytest.raises(NotImplementedError, match="item 15d"):
-        TP.check_scope(cfg, gcfg=tg.GossipConfig(wire_format="int8"), **kw)
+    TP.check_scope(cfg, gcfg=tg.GossipConfig(wire_format="int8"), **kw)
